@@ -1,0 +1,67 @@
+"""Carry state across from the JAX package without importing it.
+
+The reference dataclasses (``repro.core.tech.TechModel``,
+``repro.core.macro.MacroSpec``) reach the port as their plain field dicts —
+``dataclasses.asdict`` of the reference object, with enum members given by
+name — so a test can hand both packages the same inputs while this package
+imports nothing of ``repro``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import typing
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .core.macro import MacroSpec
+from .core.tech import TechModel
+from .device import resolve_device
+
+
+def _field_value(value: Any, kind: Any) -> Any:
+    if isinstance(kind, type) and issubclass(kind, enum.Enum):
+        return value if isinstance(value, kind) else kind[value]
+    if isinstance(value, list):
+        return tuple(value)
+    return value
+
+
+def _from_fields(cls, d: Mapping[str, Any]):
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    hints = typing.get_type_hints(cls)
+    return cls(**{k: _field_value(v, hints[k]) for k, v in d.items()})
+
+
+def tech_from_fields(d: Mapping[str, Any]) -> TechModel:
+    """The port's :class:`TechModel` from the reference's field dict."""
+    return _from_fields(TechModel, d)
+
+
+def spec_from_fields(d: Mapping[str, Any]) -> MacroSpec:
+    """The port's :class:`MacroSpec` from the reference's field dict."""
+    return _from_fields(MacroSpec, d)
+
+
+def mac_operands_from_numpy(a_q: np.ndarray, w_q: np.ndarray,
+                            a_scale: np.ndarray, w_scale: np.ndarray,
+                            device=None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """numpy int8 operands and float32 scales as the port's tensors on
+    ``device`` (``None``: the CUDA card): ``(a_q, w_q, a_scale, w_scale)``
+    with int8 operands and float32 scales, contiguous."""
+    dev = resolve_device(device)
+
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+
+    return (put(a_q, torch.int8), put(w_q, torch.int8),
+            put(a_scale, torch.float32), put(w_scale, torch.float32))

@@ -1,0 +1,175 @@
+"""The torch port's ``dcim_mac`` (``repro_torch.kernels.dcim_mac``) against
+the JAX package's Pallas kernels in interpret mode and its bit-serial DCIM
+reference, on the CPU.
+
+Tolerances, as the JAX package's own kernel tests state them
+(``tests/test_kernels.py``): int32 outputs **exact**; the float32 dequant
+epilogue within rtol 1e-6 (the port computes the same two f32 products in
+the same order, so it is in fact exact); bfloat16 within rtol 1e-2.
+
+On the CPU the wrappers run the plain versions; the CUDA kernel is held
+against them on the card by ``tests/test_torch_cuda.py`` and by
+``chip_smoke.py``.  Operands come from numpy seeds and reach both packages
+as the same arrays.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels.dcim_mac import (dcim_matmul_int_pallas,
+                                    dcim_matmul_int_pipelined_pallas,
+                                    dcim_matmul_pallas,
+                                    dcim_matmul_pipelined_pallas)
+from repro.kernels.dcim_mac import ref as jref
+
+from repro_torch.convert import mac_operands_from_numpy
+from repro_torch.kernels import TileConfig
+from repro_torch.kernels.dcim_mac import (dcim_mac_cuda, dcim_mac_int_cuda,
+                                          dcim_matmul, dcim_matmul_int, ref)
+
+# the shapes of the JAX package's kernel tests: padded, one block,
+# multi-block, ragged, a single row
+MAC_SHAPES = [(8, 16, 8), (128, 128, 128), (128, 256, 384), (130, 96, 200),
+              (1, 512, 64)]
+
+
+def operands(m, k, n, seed, lo=-128, hi=127):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(lo, hi + 1, (m, k), dtype=np.int8),
+            rng.integers(lo, hi + 1, (k, n), dtype=np.int8),
+            rng.uniform(0.01, 2.0, m).astype(np.float32),
+            rng.uniform(0.01, 2.0, n).astype(np.float32))
+
+
+def port(a, w, asc, wsc):
+    return mac_operands_from_numpy(a, w, asc, wsc, device="cpu")
+
+
+class TestIntVsPallas:
+    @pytest.mark.parametrize("m,k,n", MAC_SHAPES)
+    def test_grid_kernel(self, m, k, n):
+        a, w, _, _ = operands(m, k, n, seed=m * 7 + n)
+        want = np.asarray(dcim_matmul_int_pallas(jnp.asarray(a),
+                                                 jnp.asarray(w),
+                                                 interpret=True))
+        ta, tw, _, _ = port(a, w, np.ones(m, np.float32),
+                            np.ones(n, np.float32))
+        got = dcim_matmul_int(ta, tw)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("m,k,n", MAC_SHAPES)
+    def test_pipelined_kernel_depth2(self, m, k, n):
+        a, w, _, _ = operands(m, k, n, seed=m * 11 + k)
+        want = np.asarray(dcim_matmul_int_pipelined_pallas(
+            jnp.asarray(a), jnp.asarray(w), depth=2, interpret=True))
+        got = ref.dcim_matmul_int_ref(torch.as_tensor(a), torch.as_tensor(w))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+class TestDequantVsPallas:
+    @pytest.mark.parametrize("m,k,n", [(64, 128, 80), (130, 96, 200)])
+    @pytest.mark.parametrize("pipelined", [False, True])
+    @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+    def test_epilogue(self, m, k, n, pipelined, out_dtype):
+        a, w, asc, wsc = operands(m, k, n, seed=m + k + n)
+        jdt = jnp.float32 if out_dtype == "float32" else jnp.bfloat16
+        fn = dcim_matmul_pipelined_pallas if pipelined else dcim_matmul_pallas
+        kw = {"depth": 2} if pipelined else {}
+        want = np.asarray(fn(jnp.asarray(a), jnp.asarray(w),
+                             jnp.asarray(asc), jnp.asarray(wsc),
+                             out_dtype=jdt, interpret=True, **kw), np.float32)
+        got = dcim_matmul(*port(a, w, asc, wsc),
+                          out_dtype=getattr(torch, out_dtype))
+        assert got.dtype == getattr(torch, out_dtype)
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   rtol=1e-2 if out_dtype == "bfloat16"
+                                   else 1e-6)
+
+    def test_f32_epilogue_is_exact(self):
+        """Same products, same order: the f32 result is the Pallas bits."""
+        a, w, asc, wsc = operands(96, 160, 72, seed=3)
+        want = np.asarray(dcim_matmul_pallas(
+            jnp.asarray(a), jnp.asarray(w), jnp.asarray(asc),
+            jnp.asarray(wsc), interpret=True))
+        np.testing.assert_array_equal(
+            dcim_matmul(*port(a, w, asc, wsc)).numpy(), want)
+
+    @pytest.mark.parametrize("kind", ["scalar", "row", "col"])
+    def test_scale_broadcast(self, kind):
+        m, k, n = 40, 64, 24
+        a, w, asc, wsc = operands(m, k, n, seed=9)
+        a_s = 0.37 if kind in ("scalar", "col") else asc
+        w_s = 1.5 if kind in ("scalar", "row") else wsc
+        want = np.asarray(dcim_matmul_pallas(
+            jnp.asarray(a), jnp.asarray(w), jnp.asarray(a_s, jnp.float32),
+            jnp.asarray(w_s, jnp.float32), interpret=True))
+        got = dcim_matmul(torch.as_tensor(a), torch.as_tensor(w),
+                          a_s if np.isscalar(a_s) else torch.as_tensor(a_s),
+                          w_s if np.isscalar(w_s) else torch.as_tensor(w_s))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_square_scales_are_per_row_and_per_column(self):
+        """M == N: the row scale must not be read as a column scale."""
+        a, w, asc, wsc = operands(16, 32, 16, seed=4)
+        got = dcim_matmul(*port(a, w, asc, wsc)).numpy()
+        acc = a.astype(np.int64) @ w.astype(np.int64)
+        want = acc.astype(np.float32) * (asc[:, None] * wsc[None, :])
+        np.testing.assert_array_equal(got, want)
+
+
+class TestBitSerial:
+    @pytest.mark.parametrize("a_bits,w_bits", [(8, 8), (4, 4), (4, 8),
+                                               (2, 8), (8, 4), (1, 8)])
+    def test_bitserial_equals_int_and_reference(self, a_bits, w_bits):
+        lo_a, hi_a = ref.quant_range(a_bits) if a_bits > 1 else (0, 1)
+        lo_w, hi_w = ref.quant_range(w_bits)
+        rng = np.random.default_rng(a_bits * 10 + w_bits)
+        a = rng.integers(lo_a, hi_a + 1, (64, 96)).astype(np.int8)
+        w = rng.integers(lo_w, hi_w + 1, (96, 72)).astype(np.int8)
+        bits_a = max(a_bits, 2)
+        got = ref.dcim_matmul_bitserial_ref(torch.as_tensor(a),
+                                            torch.as_tensor(w), bits_a,
+                                            w_bits)
+        want = np.asarray(jref.dcim_matmul_bitserial_ref(
+            jnp.asarray(a), jnp.asarray(w), bits_a, w_bits))
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            got.numpy(),
+            dcim_matmul_int(torch.as_tensor(a), torch.as_tensor(w)).numpy())
+
+
+class TestWrappers:
+    def test_cpu_tensors_take_the_plain_version(self):
+        a, w, asc, wsc = port(*operands(8, 16, 8, seed=1))
+        before = (dcim_matmul.launches, dcim_matmul_int.launches)
+        dcim_matmul_int(a, w)
+        dcim_matmul(a, w, asc, wsc)
+        assert (dcim_matmul.launches, dcim_matmul_int.launches) == before
+
+    def test_tile_config_is_not_taken_yet(self):
+        a, w, _, _ = port(*operands(8, 16, 8, seed=2))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dcim_matmul_int(a, w, tile_config=TileConfig(bm=32))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dcim_matmul(a, w, tile_config=TileConfig(bm=32))
+
+    def test_kernel_entry_refuses_cpu_tensors(self):
+        a, w, asc, wsc = port(*operands(8, 16, 8, seed=3))
+        with pytest.raises(ValueError, match="CUDA"):
+            dcim_mac_int_cuda(a, w)
+        with pytest.raises(ValueError, match="CUDA"):
+            dcim_mac_cuda(a, w, asc, wsc, torch.float32)
+
+    def test_bad_scale_shape(self):
+        a, w, _, _ = port(*operands(8, 16, 8, seed=5))
+        with pytest.raises(ValueError):
+            dcim_matmul(a, w, torch.ones(3), 1.0)
+
+    def test_operands_from_numpy(self):
+        a, w, asc, wsc = port(*operands(8, 16, 12, seed=6))
+        assert (a.dtype, w.dtype, asc.dtype, wsc.dtype) == \
+            (torch.int8, torch.int8, torch.float32, torch.float32)
+        assert a.shape == (8, 16) and wsc.shape == (12,)
