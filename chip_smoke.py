@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                ``mso_search_many`` and ``design_space_sweep_many(...)
                .frontier_indices()`` on the card, held bit for bit against
                the same calls with ``device="cpu"`` and the search results
-               against the scalar oracle;
+               against the scalar oracle; the bounds of its two device
+               kernels (A1 roll-up, A2 frontier masks);
   3. mac       the ``dcim_mac`` kernels at the qwen3-4b GEMM shapes
                (``gemm_inventory``, seq 256) plus ragged shapes, driven
                through the public wrappers with launch counts reset just
@@ -20,8 +21,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
                plain torch version on the card, one output to the bit-serial
                DCIM reference; each kernel timed with CUDA events beside its
                plain version, ``torch._int_mm`` and its bound;
-  4. report    one ``{"kernels": [...]}`` line, then as the last line
+  4. csa       the ``csa_tree`` kernels on the qwen3-4b wk GEMM executed on
+               the scenario specs' 64-row macro: the 40 K-chunk product
+               stacks (64 x 262,144) through ``csa_tree_sum`` (rows route)
+               and the whole-K stack (2560 x 262,144) through the tiled
+               route, plus ragged and wrapping stacks with both compressor
+               settings; every output equal to the plain version, both
+               reductions equal to ``dcim_matmul_int(a, w)`` bit for bit;
+               times beside the plain version, ``torch.sum`` and the bound;
+  5. ssm       the ``ssm_scan`` kernels on one zamba2-1.2b Mamba2 layer's
+               SSD state (64 heads x 64 x 64 = 262,144 columns) over 1024
+               steps, and at (1024, 256), (4096, 256) and (1000, 300):
+               depths 1, 2 and 4 equal bit for bit, each within the JAX
+               package's tolerance of the sequential plain version; times
+               beside the plain version and the bound;
+  6. autotune  the tile autotuner on the card for the warm-cache script's
+               default targets (each winner within its exactness gate),
+               then one ``tile_config="auto"`` call of each entry point,
+               which must read the tuner's memo;
+  7. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
+
+Each of phases 3-5 sets its kernels' launch counts to 0 just before its
+main path and reads them just after; every kernel must have launched.
 
 It needs one CUDA card and exits non-zero without one, and when it does not
 sit at the root of a checkout of the repository.
@@ -46,6 +68,12 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+# INT32 word operations: 64 INT32 lanes per SM (Hopper architecture white
+# paper) x 132 SMs x 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# float64 operations outside the tensor cores: 64 FP64 lanes per SM, the
+# data sheet's 34 TFLOP/s counting an FMA as two
+FP64_OPS_PER_S = 64 * 132 * 1.98e9
 
 # Ragged shapes of the JAX package's kernel tests, checked for equality
 # only; times and bounds are reported over the qwen3-4b GEMMs.
@@ -230,7 +258,54 @@ def phase_compiler() -> dict:
             f"{n} kernels, {100 * busy / walls['cuda'][what]:.3f}% of the "
             f"untraced wall {walls['cuda'][what]:.6f} s (traced wall "
             f"{wall:.6f} s)")
+    a1, a2 = _a1_bound_ms(specs, tech, config), _a2_bound_ms(sw_g)
+    log(f"compiler: bounds on the card: A1 _eval_kernel (4 specs) "
+        f"{a1[0]:.6f} ms ({a1[1]}), A2 chunk_dominated (4 frontiers) "
+        f"{a2[0]:.6f} ms ({a2[1]})")
     return {"language": res_g[names.index("language")]}
+
+
+def _a1_bound_ms(specs, tech, config) -> tuple[float, str]:
+    """Least time of the lattice roll-up (A1, ``batched._eval_kernel``) over
+    the engine's spec groups: the int64 gather indices (shared by a group),
+    the per-spec tables and the float64 outputs (mac_base, ofu_base, area,
+    the five gathered area terms, one energy per mode) each moved once,
+    against its float64 adds and multiplies (8 per point plus 9 per mode)
+    at the FP64 rate."""
+    import repro_torch.core.engine as E
+
+    plan = E.plan(specs, tech, config=config, device="cpu")
+    nbytes = ops = 0
+    for group in plan.groups:
+        packed = E.pack_group([plan.lattices[i] for i in group],
+                              [plan.tables[i] for i in group])
+        n = len(packed.idx[0])
+        tabs, consts, e_ofu, e_align = packed.operands
+        lanes, modes = e_ofu.shape[:2]
+        nbytes += 8 * (len(packed.idx) * n + sum(t.size for t in tabs)
+                       + consts.size + e_ofu.size + e_align.size
+                       + lanes * n * (8 + modes))
+        ops += lanes * n * (8 + 9 * modes)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _a2_bound_ms(sweeps) -> tuple[float, str]:
+    """Least time of the frontier masks (A2, ``pareto.chunk_dominated``):
+    two float64 compares (``<=`` and ``<`` with the eps band) per objective
+    per pair of feasible points, against the objectives read once and the
+    mask written once."""
+    nbytes = ops = 0
+    for sw in sweeps:
+        n = int((sw.lattice.valid & sw.ppa.meets).sum()) \
+            or int(sw.lattice.valid.sum())
+        k = sw.objectives().shape[1]
+        nbytes += 8 * n * k + n
+        ops += 2 * k * n * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -399,7 +474,322 @@ def phase_mac(language) -> list[dict]:
             "library_ms": (sum(r["library_ms"] for r in rs)
                            if kname == "dcim_mac_int" else None),
         })
-    return kernels
+    a, w = ops["wk"][0], ops["wk"][1]
+    return kernels, (a, w, outs["wk"][0])
+
+
+# ---------------------------------------------------------------------------
+# 4. csa
+# ---------------------------------------------------------------------------
+
+
+def _csa_bound_ms(h: int, n: int, bh: int | None = None
+                  ) -> tuple[float, str]:
+    """Least time of an (H, N) column reduction on the card: the stack read
+    once and the sums written once, against the schedule's word operations
+    (8 per full adder, 1 per add) over the INT32 rate; ``bh`` is the tile
+    height of the tiled kernel (its program runs once per H tile)."""
+    from repro_torch.kernels.csa_tree import build_schedule
+    from repro_torch.kernels.csa_tree.ref import FA
+
+    rows = bh or h
+    ops = build_schedule(rows).ops
+    per_tile = 8 * int((ops[:, 0] == FA).sum()) + int((ops[:, 0] != FA).sum())
+    tiles = -(-h // rows)
+    t_bytes = 4 * (h * n + n) / HBM_BYTES_PER_S
+    t_ops = (per_tile + (tiles - 1)) * n / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_csa(wk) -> list[dict]:
+    """The adder tree of the macro the compiler designs, on the qwen3-4b wk
+    GEMM executed on the scenario specs' 64-row macro: every 64-row K chunk
+    of the (K, M*N) product stack through ``csa_tree_sum`` (rows route), the
+    whole-K stack through the tiled route, plus ragged and wrapping stacks;
+    each output held equal to the plain version, and both reductions to the
+    ``dcim_mac`` product."""
+    import torch
+
+    from repro_torch.core import scenario_specs
+    from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, csa_tree_ref,
+                                              csa_tree_sum)
+    from repro_torch.kernels.tiles import DEFAULT_TILES
+
+    a, w, product = wk
+    rows = {s.h for s in scenario_specs().values()}
+    check(rows == {64}, f"scenario macros have {rows} rows, expected 64")
+    macro_h = rows.pop()
+    (m, k), n = a.shape, w.shape[1]
+    # stack[k, m * N + n] = a[m, k] * w[k, n]: the products one macro column
+    # of K rows reduces; 64-row chunks are row slices of it
+    stack = (a.t().to(torch.int32)[:, :, None]
+             * w.to(torch.int32)[:, None, :]).reshape(k, m * n).contiguous()
+    chunks = [stack[c:c + macro_h] for c in range(0, k, macro_h)]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    extremes = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0, 1],
+                            dtype=torch.int32, device="cuda")
+    ragged = {
+        "1x5": torch.randint(-2 ** 16, 2 ** 16, (1, 5), generator=g,
+                             device="cuda", dtype=torch.int32),
+        "600x300": torch.randint(-2 ** 16, 2 ** 16, (600, 300), generator=g,
+                                 device="cuda", dtype=torch.int32),
+        f"{CSA_MAX_ROWS + 1}x1000": torch.randint(
+            -2 ** 16, 2 ** 16, (CSA_MAX_ROWS + 1, 1000), generator=g,
+            device="cuda", dtype=torch.int32),
+        "extremes_77x999": extremes[torch.randint(
+            0, 5, (77, 999), generator=g, device="cuda")],
+    }
+
+    # -- the main path -------------------------------------------------------
+    for key in csa_tree_sum.launches:
+        csa_tree_sum.launches[key] = 0
+    outs = [csa_tree_sum(x) for x in chunks]
+    whole = csa_tree_sum(stack)
+    ragged_outs = {(name, comp): csa_tree_sum(x, use_compressors=comp)
+                   for name, x in ragged.items() for comp in (True, False)}
+    torch.cuda.synchronize()
+    launches = dict(csa_tree_sum.launches)
+    log(f"csa: launches on the main path {launches}")
+    check(launches == {"rows": len(chunks) + 4, "tiled": 1 + 4},
+          f"csa launch counts {launches}")
+
+    # -- held against the plain version and the MAC product -----------------
+    err = 0.0
+    for x, got in zip(chunks, outs):
+        check(torch.equal(got, csa_tree_ref(x)),
+              "csa: a K-chunk reduction differs from its plain version")
+    total = torch.stack(outs).sum(0, dtype=torch.int32).reshape(m, n)
+    check(torch.equal(total, product),
+          "csa: the 40 K-chunk sums differ from dcim_matmul_int(a, w)")
+    check(torch.equal(whole, csa_tree_ref(stack))
+          and torch.equal(whole.reshape(m, n), product),
+          "csa: the whole-K tiled reduction differs")
+    for (name, comp), got in ragged_outs.items():
+        want = csa_tree_ref(ragged[name])
+        err = max(err, (got.double() - want.double()).abs().max().item())
+        check(torch.equal(got, want),
+              f"csa: {name} (compressors={comp}) differs from its plain "
+              f"version")
+    log(f"csa: {len(chunks)} chunks of {macro_h}x{m * n} (rows route) and "
+        f"the {k}x{m * n} stack (tiled route) equal the plain version and "
+        f"sum to dcim_matmul_int(a, w) bit for bit; ragged and wrapping "
+        f"stacks equal, both compressor settings")
+
+    # -- times ----------------------------------------------------------------
+    rows_ms = _time_ms(lambda: [csa_tree_sum(x) for x in chunks])
+    rows_plain = _time_ms(lambda: [csa_tree_ref(x) for x in chunks])
+    rows_lib = _time_ms(lambda: [torch.sum(x, 0, dtype=torch.int32)
+                                 for x in chunks])
+    rows_bound = _csa_bound_ms(macro_h, m * n)
+    bh = DEFAULT_TILES["csa_tree"].bh
+    tiled_ms = _time_ms(lambda: csa_tree_sum(stack), reps=10)
+    tiled_plain = _time_ms(lambda: csa_tree_ref(stack), reps=10)
+    tiled_lib = _time_ms(lambda: torch.sum(stack, 0, dtype=torch.int32),
+                         reps=10)
+    tiled_bound = _csa_bound_ms(k, m * n, bh)
+    rows_bound = (rows_bound[0] * len(chunks), rows_bound[1])
+    for name, t, plain, lib, bound in (
+            ("rows", rows_ms, rows_plain, rows_lib, rows_bound),
+            ("tiled", tiled_ms, tiled_plain, tiled_lib, tiled_bound)):
+        log(f"csa: csa_tree_{name}: kernel {t:.6f} ms, plain {plain:.6f} ms, "
+            f"torch.sum {lib:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+    src = "src/repro_torch/csrc/csa_tree.cu"
+    tpu = "src/repro/kernels/csa_tree/kernel.py"
+    return [
+        {"name": "csa_tree_rows", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:95", "launches": launches["rows"],
+         "max_abs_err": err, "ms": rows_ms, "plain_ms": rows_plain,
+         "bound_ms": rows_bound[0], "bound_by": rows_bound[1],
+         "library_ms": rows_lib},
+        {"name": "csa_tree_tiled", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:158", "launches": launches["tiled"],
+         "max_abs_err": err, "ms": tiled_ms, "plain_ms": tiled_plain,
+         "bound_ms": tiled_bound[0], "bound_by": tiled_bound[1],
+         "library_ms": tiled_lib},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# 5. ssm
+# ---------------------------------------------------------------------------
+
+
+def _ssm_bound_ms(t: int, d: int) -> tuple[float, str]:
+    """a and b read once, h0 read once, states and final written once,
+    against one multiply and one add per element at the float32 rate."""
+    t_bytes = 4 * (3 * t * d + 2 * d) / HBM_BYTES_PER_S
+    t_ops = 2 * t * d / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_ssm() -> list[dict]:
+    """One zamba2-1.2b Mamba2 layer's SSD state, flattened (64 heads x
+    state 64 x head_dim 64 = 262,144 columns, batch 1), scanned over 1024
+    steps, plus the tuned shape classes and a ragged shape: every route
+    within the JAX package's tolerance of the sequential plain version, the
+    pipelined depths equal to the grid kernel bit for bit."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import TileConfig
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+
+    cfg = get_config("zamba2-1.2b")
+    heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    width = heads * cfg.ssm.state * cfg.ssm.head_dim
+    check(width == 262_144, f"zamba2 SSD state width {width}")
+    shapes = [(1024, width), (1024, 256), (4096, 256), (1000, 300)]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    inputs = {}
+    for t, d in shapes:
+        # a in [0.8, 1.0), b normal, as the JAX package's benchmark draws
+        # them; h0 normal, so the carry-in is exercised
+        inputs[(t, d)] = (
+            0.8 + 0.2 * torch.rand((t, d), generator=g, device="cuda"),
+            torch.randn((t, d), generator=g, device="cuda"),
+            torch.randn((d,), generator=g, device="cuda"))
+    grid = TileConfig(depth=1)
+    depth4 = TileConfig(depth=4)
+
+    # -- the main path -------------------------------------------------------
+    for key in ssm_scan.launches:
+        ssm_scan.launches[key] = 0
+    outs = {}
+    for shape, (a, b, h0) in inputs.items():
+        outs[shape] = {1: ssm_scan(a, b, h0, tile_config=grid),
+                       2: ssm_scan(a, b, h0),
+                       4: ssm_scan(a, b, h0, tile_config=depth4)}
+    torch.cuda.synchronize()
+    launches = dict(ssm_scan.launches)
+    log(f"ssm: launches on the main path {launches}")
+    check(launches == {"grid": len(shapes), "pipelined": 2 * len(shapes)},
+          f"ssm launch counts {launches}")
+
+    # -- held against the sequential plain version ---------------------------
+    err = 0.0
+    for (t, d), (a, b, h0) in inputs.items():
+        want_s, want_f = ssm_scan_ref(a, b, h0)
+        tol = 2e-5 if t % 32 == 0 and d % 32 == 0 else 3e-5
+        s1, f1 = outs[(t, d)][1]
+        for depth, (s, f) in outs[(t, d)].items():
+            check(s.shape == (t, d) and f.shape == (d,)
+                  and bool(torch.isfinite(s).all()),
+                  f"ssm {t}x{d} depth {depth}: bad output")
+            check(torch.equal(s, s1) and torch.equal(f, f1),
+                  f"ssm {t}x{d}: depth {depth} differs from the grid kernel")
+            for got, want in ((s, want_s), (f, want_f)):
+                diff = (got - want).abs()
+                err = max(err, diff.max().item())
+                check(bool((diff <= tol + tol * want.abs()).all()),
+                      f"ssm {t}x{d} depth {depth}: outside rtol/atol {tol} "
+                      f"(max |diff| {diff.max().item()})")
+        log(f"ssm: {t}x{d}: grid, depth 2 and depth 4 equal bit for bit; "
+            f"max |diff| to the sequential plain version "
+            f"{(s1 - want_s).abs().max().item():.3e} (states), "
+            f"{(f1 - want_f).abs().max().item():.3e} (final), tolerance "
+            f"rtol/atol {tol}")
+
+    # -- times ----------------------------------------------------------------
+    rows = []
+    for (t, d), (a, b, h0) in inputs.items():
+        rows.append(dict(
+            shape=(t, d),
+            grid=_time_ms(lambda: ssm_scan(a, b, h0, tile_config=grid)),
+            pipelined=_time_ms(lambda: ssm_scan(a, b, h0)),
+            plain=_time_ms(lambda: ssm_scan_ref(a, b, h0), reps=3),
+            bound=_ssm_bound_ms(t, d)))
+    for r in rows:
+        log(f"ssm: {r['shape'][0]}x{r['shape'][1]}: grid {r['grid']:.6f} ms, "
+            f"pipelined (depth 2) {r['pipelined']:.6f} ms, plain "
+            f"{r['plain']:.6f} ms, bound {r['bound'][0]:.6f} ms "
+            f"({r['bound'][1]})")
+    bound = sum(r["bound"][0] for r in rows)
+    by = "bytes" if all(r["bound"][1] == "bytes" for r in rows) \
+        else "operations"
+    src = "src/repro_torch/csrc/ssm_scan.cu"
+    tpu = "src/repro/kernels/ssm_scan/kernel.py"
+    plain = sum(r["plain"] for r in rows)
+    # no single torch call computes the recurrence: cumprod/cumsum forms
+    # divide by running products and compute something else numerically
+    return [
+        {"name": "ssm_scan_grid", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:74", "launches": launches["grid"],
+         "max_abs_err": err, "ms": sum(r["grid"] for r in rows),
+         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+         "library_ms": None},
+        {"name": "ssm_scan_pipelined", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:183", "launches": launches["pipelined"],
+         "max_abs_err": err, "ms": sum(r["pipelined"] for r in rows),
+         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+         "library_ms": None},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# 6. autotune
+# ---------------------------------------------------------------------------
+
+# the warm-cache script's default tuning targets
+TUNE_TARGETS = (("dcim_mac", (128, 512, 512)), ("dcim_mac", (512, 512, 512)),
+                ("ssm_scan", (1024, 256)), ("ssm_scan", (4096, 256)),
+                ("csa_tree", (256, 512)), ("csa_tree", (1024, 512)))
+
+
+def phase_autotune() -> None:
+    """The tile autotuner on the card for every default target (each winner
+    within its exactness gate), then one ``tile_config="auto"`` call of each
+    entry point, which must read the tuner's memo."""
+    import torch
+
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.csa_tree import csa_tree_sum
+    from repro_torch.kernels.dcim_mac import dcim_matmul_int
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.obs.metrics import get_registry
+
+    autotune.clear_memo()
+    for kernel, shape in TUNE_TARGETS:
+        t0 = time.perf_counter()
+        res = autotune.autotune(kernel, shape)
+        (won,) = [c for c in res.candidates if c.config == res.winner]
+        check(won.ok and won.max_err <= autotune._MAX_ERR[kernel],
+              f"autotune {kernel} {shape}: winner fails its exactness gate")
+        n_ok = sum(c.ok for c in res.candidates)
+        log(f"autotune: {kernel} {'x'.join(map(str, shape))}: winner "
+            f"{res.winner.as_dict()} {res.time_us:.3f} us (max |diff| "
+            f"{won.max_err}), {n_ok}/{len(res.candidates)} candidates pass, "
+            f"frontier {len(res.frontier)}, default "
+            f"{'kept' if not res.picked_nondefault else 'beaten'}; "
+            f"{time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    calls = {
+        "dcim_mac": lambda: dcim_matmul_int(
+            torch.randint(-8, 8, (128, 512), generator=g, device="cuda",
+                          dtype=torch.int8),
+            torch.randint(-8, 8, (512, 512), generator=g, device="cuda",
+                          dtype=torch.int8), tile_config="auto"),
+        "ssm_scan": lambda: ssm_scan(
+            torch.rand((1024, 256), generator=g, device="cuda"),
+            torch.randn((1024, 256), generator=g, device="cuda"),
+            torch.zeros(256, device="cuda"), tile_config="auto"),
+        "csa_tree": lambda: csa_tree_sum(
+            torch.randint(-99, 99, (256, 512), generator=g, device="cuda",
+                          dtype=torch.int32), tile_config="auto"),
+    }
+    reg = get_registry()
+    for kernel, call in calls.items():
+        counter = reg.counter(f"kernel/{kernel}/tile_source/memo")
+        before = counter.value
+        call()
+        check(counter.value == before + 1,
+              f"autotune: {kernel} tile_config=\"auto\" did not read the "
+              f"memo")
+    torch.cuda.synchronize()
+    log("autotune: tile_config=\"auto\" of dcim_matmul_int, ssm_scan and "
+        "csa_tree_sum each read the tuner's memo (kernel/<k>/tile_source/"
+        "memo +1)")
 
 
 def main() -> int:
@@ -421,10 +811,20 @@ def main() -> int:
     t1 = time.perf_counter()
     chosen = phase_compiler()
     t2 = time.perf_counter()
-    kernels = phase_mac(chosen["language"])
+    kernels, wk = phase_mac(chosen["language"])
     t3 = time.perf_counter()
+    kernels += phase_csa(wk)
+    t4 = time.perf_counter()
+    kernels += phase_ssm()
+    t5 = time.perf_counter()
+    phase_autotune()
+    t6 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
-        f"mac {t3 - t2:.3f} s")
+        f"mac {t3 - t2:.3f} s, csa {t4 - t3:.3f} s, ssm {t5 - t4:.3f} s, "
+        f"autotune {t6 - t5:.3f} s")
+    check(all(k["launches"] > 0 for k in kernels),
+          f"a kernel was not launched on its main path: "
+          f"{[k['name'] for k in kernels if not k['launches']]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

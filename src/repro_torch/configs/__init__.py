@@ -1,18 +1,20 @@
 """Assigned architecture configs the port carries so far.
 
 ``get_config(name)`` / ``list_archs()`` mirror the JAX package's
-``repro.configs``; this slice carries ``qwen3-4b``, whose GEMMs drive the
-``dcim_mac`` kernel.
+``repro.configs``; the port carries ``qwen3-4b``, whose GEMMs drive the
+``dcim_mac`` and ``csa_tree`` kernels, and ``zamba2-1.2b``, whose Mamba2
+state sizes the ``ssm_scan`` kernel.
 """
 
 from __future__ import annotations
 
 from .base import (ArchConfig, FrontendCfg, MoECfg, SSMCfg, SHAPES, ShapeCfg,
                    SUBQUADRATIC_FAMILIES, applicable_shapes)
-from . import qwen3_4b
+from . import qwen3_4b, zamba2_12b
 
 _MODULES = {
     "qwen3-4b": qwen3_4b,
+    "zamba2-1.2b": zamba2_12b,
 }
 
 

@@ -65,3 +65,26 @@ def mac_operands_from_numpy(a_q: np.ndarray, w_q: np.ndarray,
 
     return (put(a_q, torch.int8), put(w_q, torch.int8),
             put(a_scale, torch.float32), put(w_scale, torch.float32))
+
+
+def csa_operands_from_numpy(operands: np.ndarray, device=None
+                            ) -> torch.Tensor:
+    """An (H, N) numpy operand stack as the port's contiguous int32 tensor
+    on ``device`` (``None``: the CUDA card).  Values must fit in int32."""
+    x = np.ascontiguousarray(operands)
+    if x.dtype != np.int32:
+        if x.size and (x.min() < -2 ** 31 or x.max() >= 2 ** 31):
+            raise ValueError("operand values do not fit in int32")
+        x = x.astype(np.int32)
+    return torch.as_tensor(x, device=resolve_device(device))
+
+
+def ssm_operands_from_numpy(a: np.ndarray, b: np.ndarray, h0: np.ndarray,
+                            device=None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """numpy ``a``, ``b`` (T, D) and ``h0`` (D,) as the port's contiguous
+    float32 tensors on ``device`` (``None``: the CUDA card)."""
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,
+                                 device=dev) for x in (a, b, h0))

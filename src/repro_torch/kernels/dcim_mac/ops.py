@@ -12,9 +12,14 @@ There is no fallback from the kernel to the plain version.  Each wrapper
 counts its kernel launches in a plain integer attribute, ``launches``, so a
 run can show that its main path went through the kernel.
 
-``tile_config`` is the JAX package's launch-posture argument.  Only ``None``
-(the kernel's own blocks) is taken until the kernel-support slice re-derives
-tile feasibility for Hopper; anything else raises.
+``tile_config`` is the JAX package's launch-posture argument, checked
+against the Hopper tile space (:mod:`repro_torch.kernels.tiles`): None (the
+kernel's one block), that block as an explicit
+:class:`~repro_torch.kernels.tiles.TileConfig`, or ``"auto"`` for the
+autotuner's winner (:func:`repro_torch.kernels.autotune.lookup`).  Any other
+block raises ValueError: the kernel is compiled for one.  Every call goes
+through :func:`~repro_torch.kernels.instrument.dispatch_span` with the
+route ``pipelined`` (the kernel's two shared-memory stages).
 """
 
 from __future__ import annotations
@@ -22,45 +27,50 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from ..autotune import select_tile
+from ..instrument import dispatch_span
+from ..tiles import TileConfig
 from .kernel import dcim_mac_cuda, dcim_mac_int_cuda
 
 
-def _no_tiles(tile_config) -> None:
-    if tile_config is not None:
-        raise NotImplementedError(
-            "tile_config is not taken yet: the Hopper kernel runs its own "
-            "blocks until the kernel-support slice (ROADMAP.md queue 1, "
-            "item 8)")
+def _dispatch(a_q: torch.Tensor, w_q: torch.Tensor, tile_config):
+    shape = (a_q.shape[0], a_q.shape[1], w_q.shape[1])
+    tc, source = select_tile("dcim_mac", shape, tile_config, a_q.device)
+    return dispatch_span("dcim_mac", shape, tc, source, "pipelined",
+                         a_q.device)
 
 
 def dcim_matmul(a_q: torch.Tensor, w_q: torch.Tensor,
                 a_scale: torch.Tensor | float = 1.0,
                 w_scale: torch.Tensor | float = 1.0,
                 *, out_dtype: torch.dtype = torch.float32,
-                tile_config=None) -> torch.Tensor:
+                tile_config: TileConfig | str | None = None) -> torch.Tensor:
     """Quantized (M,K)x(K,N) matmul with fused dequant epilogue: per-row
     ``a_scale`` (M,) and per-column ``w_scale`` (N,), or scalars."""
-    _no_tiles(tile_config)
-    if not a_q.is_cuda:
-        return ref.dcim_matmul_ref(a_q, w_q, a_scale, w_scale,
-                                   out_dtype=out_dtype)
-    m, n = a_q.shape[0], w_q.shape[1]
-    asc = ref.scale_vector(a_scale, m, a_q.device).contiguous()
-    wsc = ref.scale_vector(w_scale, n, a_q.device).contiguous()
-    out = dcim_mac_cuda(a_q, w_q, asc, wsc, out_dtype)
-    dcim_matmul.launches += 1
-    return out
+    with _dispatch(a_q, w_q, tile_config):
+        if not a_q.is_cuda:
+            return ref.dcim_matmul_ref(a_q, w_q, a_scale, w_scale,
+                                       out_dtype=out_dtype)
+        m, n = a_q.shape[0], w_q.shape[1]
+        asc = ref.scale_vector(a_scale, m, a_q.device).contiguous()
+        wsc = ref.scale_vector(w_scale, n, a_q.device).contiguous()
+        out = dcim_mac_cuda(a_q, w_q, asc, wsc, out_dtype)
+        if m and n:
+            dcim_matmul.launches += 1
+        return out
 
 
 def dcim_matmul_int(a_q: torch.Tensor, w_q: torch.Tensor,
-                    *, tile_config=None) -> torch.Tensor:
+                    *, tile_config: TileConfig | str | None = None
+                    ) -> torch.Tensor:
     """Integer-accumulator variant: returns int32 (M,N)."""
-    _no_tiles(tile_config)
-    if not a_q.is_cuda:
-        return ref.dcim_matmul_int_ref(a_q, w_q)
-    out = dcim_mac_int_cuda(a_q, w_q)
-    dcim_matmul_int.launches += 1
-    return out
+    with _dispatch(a_q, w_q, tile_config):
+        if not a_q.is_cuda:
+            return ref.dcim_matmul_int_ref(a_q, w_q)
+        out = dcim_mac_int_cuda(a_q, w_q)
+        if a_q.shape[0] and w_q.shape[1]:
+            dcim_matmul_int.launches += 1
+        return out
 
 
 dcim_matmul.launches = 0

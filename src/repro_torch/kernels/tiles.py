@@ -1,24 +1,46 @@
-"""Tile/pipeline configuration shared by the DCIM-path kernels.
+"""Tile/pipeline configuration shared by the port's three CUDA kernels.
 
 A :class:`TileConfig` names every tunable of one kernel launch: the block
-shape the grid is cut into and the pipeline ``depth``.  The port carries the
-type and the per-kernel defaults so launch postures keep their meaning
-across the two packages; which configs are feasible on Hopper (a shared
-memory budget per block, warp/MMA alignment) is re-derived with the
-kernel-support slice, and the hand-written kernels take no ``TileConfig``
-until then.
+shape the grid is cut into and the pipeline ``depth``.  It keeps the JAX
+package's meaning, so a tuned posture reads the same in both packages; the
+tile autotuner (:mod:`repro_torch.kernels.autotune`) enumerates candidates
+from :func:`tile_space`, times them and keeps the winner.
 
 Field semantics per kernel (unused fields stay None):
 
-  dcim_mac   bm x bn output tile, bk K-chunk, depth-slot operand streaming
-  ssm_scan   bt T-chunk, bd D-tile (lanes), depth-slot (a, b) streaming
-  csa_tree   bh row tile (the tiled-H variant), bn lane tile
+  dcim_mac   bm x bn output tile, bk K-stage, depth shared-memory stages
+  ssm_scan   bt T-chunk, bd D-tile (one thread per column), depth cp.async
+             stages of (a, b) chunks (1: the plain-load kernel)
+  csa_tree   bh row tile (the tiled-H kernel), bn columns (one thread each)
+
+Feasibility is Hopper's, not the TPU's: a block's working set must fit the
+shared memory one block may use (:data:`SMEM_BUDGET_BYTES` in place of the
+TPU's 12 MiB VMEM budget), and a dimension that maps onto threads is a
+multiple of the warp (:data:`WARP` in place of the TPU's 128-lane and
+8-sublane alignment).  The working set of a candidate is the port kernel's
+own shared-memory use (:func:`smem_bytes`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+#: Shared memory one block may use on an H100: 227 KB of the SM's 256 KB.
+#: Above 48 KB it is dynamic shared memory, which the kernels' launchers
+#: unlock with ``cudaFuncSetAttribute``.
+SMEM_BUDGET_BYTES = 232_448
+
+#: Threads of a warp: every tile dimension that maps onto threads is a
+#: multiple of it.
+WARP = 32
+
+#: Threads one block may have.
+MAX_THREADS = 1024
+
+#: Pipeline depths the ``ssm_scan`` kernel is compiled for (1 is the
+#: plain-load kernel, 2..4 the ``cp.async`` ring).
+SSM_DEPTHS = (1, 2, 3, 4)
 
 
 @dataclass(frozen=True)
@@ -47,21 +69,127 @@ class TileConfig:
         return cls(**{k: int(v) for k, v in d.items() if k in fields})
 
 
-#: Per-kernel default launch posture (the JAX package's TPU blocks).
+#: Per-kernel default launch posture of the Hopper kernels.  Where it
+#: differs from the JAX package's TPU default:
+#:
+#:   dcim_mac  64 x 64 x 128 with two shared stages, the one block
+#:             ``csrc/dcim_mac.cu`` is compiled for (TPU: 128 x 128 x 128);
+#:   ssm_scan  bt 32 (TPU: 128): two stages of 128-row (a, b) chunks of
+#:             128 columns would need 256 KiB of shared memory;
+#:   csa_tree  bn 64 (TPU: 256): the whole-rows kernel keeps all
+#:             ``CSA_MAX_ROWS`` = 512 rows of its columns in shared memory,
+#:             512 x 64 x 4 B = 128 KiB.
 DEFAULT_TILES: dict[str, TileConfig] = {
-    "dcim_mac": TileConfig(bm=128, bn=128, bk=128, depth=2),
-    "ssm_scan": TileConfig(bt=128, bd=128, depth=2),
-    "csa_tree": TileConfig(bh=128, bn=256, depth=1),
+    "dcim_mac": TileConfig(bm=64, bn=64, bk=128, depth=2),
+    "ssm_scan": TileConfig(bt=32, bd=128, depth=2),
+    "csa_tree": TileConfig(bh=128, bn=64, depth=1),
 }
 
 KERNELS = tuple(DEFAULT_TILES)
 
 
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def shape_class(kernel: str, shape: tuple[int, ...]) -> str:
+    """Bucket a concrete shape so one tuning generalizes: every dim rounds
+    up to the next power of two (decode M=1..128 share a class, long-context
+    T=400k..524k share a class)."""
+    def pow2(x: int) -> int:
+        p = 1
+        while p < x:
+            p *= 2
+        return p
+    return f"{kernel}:" + "x".join(str(pow2(max(1, int(d)))) for d in shape)
+
+
+def smem_bytes(kernel: str, cfg: TileConfig) -> int:
+    """Shared memory one block of the port's kernel uses under ``cfg``."""
+    if kernel == "dcim_mac":
+        return cfg.depth * (cfg.bm * cfg.bk + cfg.bk * cfg.bn)
+    if kernel == "ssm_scan":
+        return 4 * 2 * cfg.depth * cfg.bt * cfg.bd
+    if kernel == "csa_tree":
+        return 4 * cfg.bh * cfg.bn
+    raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
+
+
+def _threads_ok(n: int | None) -> bool:
+    return n is not None and n % WARP == 0 and WARP <= n <= MAX_THREADS
+
+
+def feasible(kernel: str, cfg: TileConfig) -> bool:
+    """Whether the port's kernel can launch with ``cfg`` on Hopper."""
+    if kernel == "dcim_mac":
+        return cfg == DEFAULT_TILES["dcim_mac"]
+    if kernel == "ssm_scan":
+        ok = (cfg.bt is not None and cfg.bt >= 1 and _threads_ok(cfg.bd)
+              and cfg.depth in SSM_DEPTHS)
+    elif kernel == "csa_tree":
+        # depth has no meaning for the adder tree (the JAX package's
+        # configs carry any value there)
+        ok = cfg.bh is not None and cfg.bh >= 1 and _threads_ok(cfg.bn)
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
+    return ok and smem_bytes(kernel, cfg) <= SMEM_BUDGET_BYTES
+
+
+def _clamp(cands: tuple[int, ...], dim: int, align: int) -> list[int]:
+    """Candidate tile sizes for one dimension: a tile larger than the
+    dimension's aligned extent only covers padding, so it is pruned."""
+    ceil = max(align, round_up(dim, align))
+    keep = sorted({min(c, ceil) for c in cands})
+    return [c for c in keep if c <= ceil]
+
+
+def tile_space(kernel: str, shape: tuple[int, ...]) -> list[TileConfig]:
+    """The candidate (block-shape, depth) lattice for one kernel on one
+    concrete shape: no tile past the aligned extent, every candidate
+    :func:`feasible` on Hopper, the default first when it survives."""
+    out: list[TileConfig] = []
+    if kernel == "dcim_mac":
+        # the kernel masks ragged edges itself: its one block serves every
+        # (M, K, N)
+        out.append(DEFAULT_TILES["dcim_mac"])
+    elif kernel == "ssm_scan":
+        t, d = shape
+        for bt in _clamp((32, 64, 128, 256), t, WARP):
+            for bd in _clamp((32, 64, 128, 256), d, WARP):
+                for depth in (1, 2, 4):
+                    out.append(TileConfig(bt=bt, bd=bd, depth=depth))
+    elif kernel == "csa_tree":
+        h, n = shape
+        for bh in _clamp((32, 64, 128, 256), h, WARP):
+            for bn in _clamp((32, 64, 128, 256), n, WARP):
+                out.append(TileConfig(bh=bh, bn=bn, depth=1))
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
+    out = [c for c in out if feasible(kernel, c)]
+    default = DEFAULT_TILES[kernel]
+    if default in out:
+        out.remove(default)
+        out.insert(0, default)
+    return out
+
+
 def resolve_tile(kernel: str, tile_config: "TileConfig | None") -> TileConfig:
-    """Fill unset fields of an explicit config from the kernel default."""
+    """Fill unset fields of an explicit config from the kernel default and
+    check it against Hopper (:func:`feasible`); raises ValueError if the
+    kernel cannot launch with it."""
     default = DEFAULT_TILES[kernel]
     if tile_config is None:
         return default
-    merged = {k: (v if v is not None else getattr(default, k))
-              for k, v in dataclasses.asdict(tile_config).items()}
-    return TileConfig(**merged)
+    if not isinstance(tile_config, TileConfig):
+        raise TypeError(f"tile_config must be None, a TileConfig or "
+                        f"\"auto\", got {tile_config!r}")
+    merged = TileConfig(**{
+        k: (v if v is not None else getattr(default, k))
+        for k, v in dataclasses.asdict(tile_config).items()})
+    if not feasible(kernel, merged):
+        raise ValueError(
+            f"{kernel} cannot launch with {merged.as_dict()} on Hopper "
+            f"(shared memory {smem_bytes(kernel, merged)} B of "
+            f"{SMEM_BUDGET_BYTES}; thread dims multiples of {WARP} up to "
+            f"{MAX_THREADS}); e.g. {DEFAULT_TILES[kernel].as_dict()}")
+    return merged

@@ -1,0 +1,217 @@
+"""The torch port's ``csa_tree`` (``repro_torch.kernels.csa_tree``) against
+the JAX package's adder-tree kernels in interpret mode, its plain column
+sum, and its reduction schedule level by level, on the CPU.
+
+Tolerance: none.  The adder tree is integer arithmetic that wraps mod 2^32;
+every output must equal the reference's bits.
+
+Equality with the column sum holds for any correct carry-save schedule, so
+it cannot show that the schedule was ported; ``TestSchedule`` does: the op
+program the CUDA kernel runs (``build_schedule``), executed in torch by
+``reduce_levels``, gives the same lanes as the JAX package's
+``_reduce_level`` at every level.  The CUDA kernel itself is held against
+the plain version on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels.csa_tree import csa_tree_pallas, csa_tree_tiled_pallas
+from repro.kernels.csa_tree import csa_tree_ref as jax_csa_tree_ref
+from repro.kernels.csa_tree import kernel as jax_kernel
+
+from repro_torch.convert import csa_operands_from_numpy
+from repro_torch.kernels import TileConfig, autotune
+from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, build_schedule,
+                                          csa_tree_ref, csa_tree_rows_cuda,
+                                          csa_tree_sum, csa_tree_tiled_cuda,
+                                          reduce_lanes, reduce_levels)
+from repro_torch.kernels.csa_tree.ref import FA, ZERO
+from repro_torch.obs.metrics import get_registry
+
+HEIGHTS = [1, 2, 3, 4, 5, 7, 64, 130, 600]
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def stack(h, n=37, seed=0, extremes=False):
+    rng = np.random.default_rng(seed + 1000 * h + n)
+    if extremes:
+        return rng.choice(np.array([INT32_MIN, INT32_MAX, -1, 0, 1],
+                                   np.int32), (h, n))
+    return rng.integers(-2 ** 16, 2 ** 16, (h, n), dtype=np.int32)
+
+
+def wrapped_sum(x):
+    s = x.astype(np.int64).sum(0) & 0xFFFFFFFF
+    return np.where(s >= 2 ** 31, s - 2 ** 32, s).astype(np.int32)
+
+
+def port(x):
+    return csa_operands_from_numpy(x, device="cpu")
+
+
+@pytest.fixture(autouse=True)
+def _fresh_memo():
+    autotune.clear_memo()
+    autotune.set_registry(None)
+    yield
+    autotune.clear_memo()
+    autotune.set_registry(None)
+
+
+class TestPlainVersion:
+    @pytest.mark.parametrize("h", HEIGHTS)
+    @pytest.mark.parametrize("extremes", [False, True])
+    def test_equals_jax_ref(self, h, extremes):
+        x = stack(h, extremes=extremes)
+        got = csa_tree_ref(port(x))
+        assert got.dtype == torch.int32 and got.shape == (x.shape[1],)
+        want = np.asarray(jax_csa_tree_ref(jnp.asarray(x)))
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), wrapped_sum(x))
+
+    def test_sum_wraps_mod_2_32(self):
+        x = np.full((4, 3), INT32_MAX, np.int32)
+        got = csa_tree_ref(port(x)).numpy()
+        np.testing.assert_array_equal(got, np.full(3, -4, np.int32))
+
+    @pytest.mark.parametrize("h", [h for h in HEIGHTS if h <= CSA_MAX_ROWS])
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    @pytest.mark.parametrize("extremes", [False, True])
+    def test_equals_whole_rows_pallas(self, h, use_compressors, extremes):
+        x = stack(h, n=300, extremes=extremes)
+        want = np.asarray(csa_tree_pallas(jnp.asarray(x),
+                                          use_compressors=use_compressors,
+                                          interpret=True))
+        np.testing.assert_array_equal(csa_tree_ref(port(x)).numpy(), want)
+        np.testing.assert_array_equal(
+            reduce_lanes(port(x), use_compressors).numpy(), want)
+
+    @pytest.mark.parametrize("h", HEIGHTS)
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_equals_tiled_pallas(self, h, use_compressors):
+        x = stack(h, n=300, extremes=h % 2 == 1)
+        want = np.asarray(csa_tree_tiled_pallas(
+            jnp.asarray(x), use_compressors=use_compressors, bh=32,
+            interpret=True))
+        np.testing.assert_array_equal(
+            csa_tree_sum(port(x), use_compressors=use_compressors).numpy(),
+            want)
+
+
+class TestSchedule:
+    """The kernel's op program against the JAX package's schedule."""
+
+    @staticmethod
+    def jax_levels(x, use_compressors):
+        """The lanes after every level of ``_reduce_lanes``' loop, from the
+        JAX package's own ``_reduce_level`` (which runs on numpy rows)."""
+        lanes = [x[i] for i in range(x.shape[0])]
+        levels, guard = [], 0
+        while len(lanes) > 2 and guard < 64:
+            guard += 1
+            reduced = jax_kernel._reduce_level(lanes, use_compressors)
+            if len(reduced) >= len(lanes):
+                reduced = [reduced[0] + reduced[1]] + reduced[2:]
+            lanes = reduced
+            levels.append(np.stack([np.asarray(v, np.int32)
+                                    for v in lanes]))
+        return levels
+
+    @pytest.mark.parametrize("h", HEIGHTS)
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_level_by_level(self, h, use_compressors):
+        x = stack(h, n=19, extremes=True)
+        want = self.jax_levels(x, use_compressors)
+        got = reduce_levels(port(x), use_compressors)
+        assert [len(g) for g in got] == [len(w) for w in want]
+        for level, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g.numpy(), w,
+                                          err_msg=f"level {level}")
+
+    @pytest.mark.parametrize("h", HEIGHTS)
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_program_fits_in_h_slots(self, h, use_compressors):
+        s = build_schedule(h, use_compressors)
+        assert s.ops.dtype == np.int32 and s.ops.shape[1] == 4
+        if len(s.ops):
+            assert s.ops[:, 1:3].min() >= 0 and s.ops[:, 1:].max() < h
+            assert (s.ops[:, 3][s.ops[:, 0] != FA] == 0).all()
+            assert set(s.ops[:, 3][s.ops[:, 3] < 0]) <= {ZERO}
+        assert 0 <= s.result < h
+        assert s.level_ends == tuple(sorted(s.level_ends))
+
+    def test_compressors_chain_carry_out(self):
+        """Eight rows: two compressors, the first with cin = 0, the second
+        taking the first's carry-out; the last carry-out is appended."""
+        s = build_schedule(8, True)
+        assert s.ops[:4].tolist() == [[FA, 0, 1, 2], [FA, 0, 3, ZERO],
+                                      [FA, 4, 5, 6], [FA, 4, 7, 1]]
+        assert s.levels[0] == (0, 3, 4, 7, 5)
+
+    def test_needs_a_row(self):
+        with pytest.raises(ValueError, match="at least one row"):
+            build_schedule(0)
+
+
+class TestEntryPoint:
+    @staticmethod
+    def kernel_counters():
+        return {k: v for k, v in get_registry().as_dict().items()
+                if k.startswith("kernel/csa_tree/")}
+
+    def delta(self, fn):
+        before = self.kernel_counters()
+        out = fn()
+        after = self.kernel_counters()
+        return out, {k: v - before.get(k, 0) for k, v in after.items()
+                     if v != before.get(k, 0)}
+
+    @pytest.mark.parametrize("h,tile_config,route,source", [
+        (64, None, "rows", "default"),
+        (CSA_MAX_ROWS, None, "rows", "default"),
+        (CSA_MAX_ROWS + 1, None, "tiled", "default"),
+        (64, TileConfig(bh=32, bn=128), "tiled", "explicit"),
+        (64, "auto", "tiled", "default"),
+    ])
+    def test_routing_and_counters(self, h, tile_config, route, source):
+        x = stack(h, n=50)
+        out, d = self.delta(lambda: csa_tree_sum(port(x),
+                                                 tile_config=tile_config))
+        np.testing.assert_array_equal(out.numpy(), wrapped_sum(x))
+        assert d == {"kernel/csa_tree/dispatch": 1,
+                     f"kernel/csa_tree/route/{route}": 1,
+                     f"kernel/csa_tree/tile_source/{source}": 1}
+
+    def test_cpu_tensors_launch_nothing(self):
+        before = dict(csa_tree_sum.launches)
+        csa_tree_sum(port(stack(600)))
+        assert csa_tree_sum.launches == before
+
+    def test_infeasible_tile_raises(self):
+        with pytest.raises(ValueError, match="Hopper"):
+            csa_tree_sum(port(stack(8)), tile_config=TileConfig(bh=256,
+                                                                 bn=256))
+        with pytest.raises(ValueError, match="auto"):
+            csa_tree_sum(port(stack(8)), tile_config="fast")
+
+    def test_kernel_entries_refuse_cpu_tensors(self):
+        x = port(stack(8))
+        for fn in (csa_tree_rows_cuda, csa_tree_tiled_cuda):
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(x)
+
+    def test_whole_rows_guard_raises(self):
+        x = port(np.zeros((CSA_MAX_ROWS + 1, 8), np.int32))
+        with pytest.raises(ValueError, match="csa_tree_tiled_cuda"):
+            csa_tree_rows_cuda(x)
+
+    def test_operands_from_numpy(self):
+        x = csa_operands_from_numpy(np.arange(6, dtype=np.int64)
+                                    .reshape(2, 3), device="cpu")
+        assert x.dtype == torch.int32 and x.is_contiguous()
+        with pytest.raises(ValueError, match="int32"):
+            csa_operands_from_numpy(np.array([[2 ** 31]]), device="cpu")

@@ -1,5 +1,6 @@
-"""The port on the CUDA card: the hand-written ``dcim_mac`` kernel against
-its plain torch version, and the compiler's device path against the CPU.
+"""The port on the CUDA card: the hand-written ``dcim_mac``, ``csa_tree``
+and ``ssm_scan`` kernels against their plain torch versions, the tile
+autotuner's winners, and the compiler's device path against the CPU.
 
 Every test here needs a card, carries the ``cuda`` marker and skips with a
 reason where none is visible (the kernel has no CPU mode).  The module
@@ -8,8 +9,12 @@ only torch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: none.  Kernel outputs (int32, float32 and bfloat16) must equal
-the plain version's bits; the compiler's arrays must equal the CPU's bits.
+Tolerances: none for ``dcim_mac`` and ``csa_tree`` (int32, float32 and
+bfloat16 outputs must equal the plain version's bits) and for the
+compiler (its arrays must equal the CPU's bits).  ``ssm_scan`` is a float
+scan and is held within the JAX package's rtol/atol of 2e-5 (3e-5 on
+ragged shapes) of the sequential plain version; its depths must equal one
+another bit for bit.
 """
 
 import numpy as np
@@ -19,7 +24,14 @@ import torch
 import repro_torch.core as C
 from repro_torch.convert import mac_operands_from_numpy
 from repro_torch.core import subcircuits as sc
+from repro_torch.convert import (csa_operands_from_numpy,
+                                 ssm_operands_from_numpy)
+from repro_torch.kernels import TileConfig, autotune
+from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, csa_tree_ref,
+                                          csa_tree_rows_cuda, csa_tree_sum)
 from repro_torch.kernels.dcim_mac import dcim_matmul, dcim_matmul_int, ref
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+from repro_torch.obs.metrics import get_registry
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +111,120 @@ def test_compiler_device_path_equals_cpu(cuda_device):
         np.testing.assert_array_equal(gpu.ppa.e_cycle[m].view(np.uint64),
                                       v.view(np.uint64))
     assert gpu.frontier_indices() == cpu.frontier_indices()
+
+
+# csa_tree: one row, ragged columns, the macro's 64 rows, past a 128-row
+# tile, the whole-rows limit, and past it
+CSA_SHAPES = [(1, 5), (2, 33), (7, 100), (64, 1000), (130, 257),
+              (CSA_MAX_ROWS, 64), (600, 300)]
+
+
+def csa_stack(h, n, seed, extremes=False):
+    rng = np.random.default_rng(seed)
+    if extremes:
+        x = rng.choice(np.array([-2 ** 31, 2 ** 31 - 1, -1, 0, 1], np.int32),
+                       (h, n))
+    else:
+        x = rng.integers(-2 ** 16, 2 ** 16, (h, n), dtype=np.int32)
+    return csa_operands_from_numpy(x, device="cuda")
+
+
+@pytest.mark.parametrize("h,n", CSA_SHAPES)
+@pytest.mark.parametrize("use_compressors", [True, False])
+@pytest.mark.parametrize("extremes", [False, True])
+def test_csa_tree_kernel_equals_plain_version(cuda_device, h, n,
+                                              use_compressors, extremes):
+    x = csa_stack(h, n, seed=h * 7 + n, extremes=extremes)
+    route = "rows" if h <= CSA_MAX_ROWS else "tiled"
+    before = dict(csa_tree_sum.launches)
+    got = csa_tree_sum(x, use_compressors=use_compressors)
+    assert csa_tree_sum.launches[route] == before[route] + 1
+    assert torch.equal(got, csa_tree_ref(x))
+
+
+@pytest.mark.parametrize("tc", [TileConfig(bh=32, bn=32),
+                                TileConfig(bh=128, bn=64),
+                                TileConfig(bh=256, bn=128),
+                                TileConfig(bh=7, bn=96)])
+def test_csa_tree_tiled_kernel_equals_plain_version(cuda_device, tc):
+    for h, n in CSA_SHAPES:
+        x = csa_stack(h, n, seed=h + n, extremes=True)
+        before = csa_tree_sum.launches["tiled"]
+        assert torch.equal(csa_tree_sum(x, tile_config=tc), csa_tree_ref(x))
+        assert csa_tree_sum.launches["tiled"] == before + 1
+
+
+def test_csa_tree_whole_rows_guard(cuda_device):
+    x = csa_stack(CSA_MAX_ROWS + 1, 8, seed=1)
+    with pytest.raises(ValueError, match="csa_tree_tiled_cuda"):
+        csa_tree_rows_cuda(x)
+
+
+# ssm_scan: the JAX package's kernel-test shapes, a ragged one, and the
+# tuned shape classes
+SSM_SHAPES = [(16, 8), (128, 128), (130, 64), (257, 130), (512, 256),
+              (1, 32), (1000, 300), (1024, 256)]
+
+
+def ssm_inputs(t, d, seed, lo=0.7):
+    rng = np.random.default_rng(seed)
+    return ssm_operands_from_numpy(
+        rng.uniform(lo, 1.0, (t, d)), rng.normal(size=(t, d)),
+        rng.normal(size=(d,)), device="cuda")
+
+
+@pytest.mark.parametrize("t,d", SSM_SHAPES)
+def test_ssm_scan_depths_equal_and_close_to_plain(cuda_device, t, d):
+    a, b, h0 = ssm_inputs(t, d, seed=t + d)
+    want_s, want_f = ssm_scan_ref(a, b, h0)
+    tol = 2e-5 if t % 32 == 0 and d % 32 == 0 else 3e-5
+    outs = {}
+    for depth in (1, 2, 3, 4):
+        route = "pipelined" if depth >= 2 else "grid"
+        before = ssm_scan.launches[route]
+        outs[depth] = ssm_scan(a, b, h0, tile_config=TileConfig(
+            bt=32, bd=128, depth=depth))
+        assert ssm_scan.launches[route] == before + 1
+        s, f = outs[depth]
+        torch.testing.assert_close(s, want_s, rtol=tol, atol=tol)
+        torch.testing.assert_close(f, want_f, rtol=tol, atol=tol)
+        assert torch.equal(f, s[-1])
+    for depth in (2, 3, 4):
+        assert torch.equal(outs[depth][0], outs[1][0])
+        assert torch.equal(outs[depth][1], outs[1][1])
+
+
+@pytest.mark.parametrize("tc", [TileConfig(bt=1, bd=32, depth=1),
+                                TileConfig(bt=64, bd=64, depth=4),
+                                TileConfig(bt=256, bd=32, depth=2),
+                                TileConfig(bt=100, bd=96, depth=3)])
+def test_ssm_scan_tiles_equal(cuda_device, tc):
+    a, b, h0 = ssm_inputs(257, 130, seed=3, lo=0.0)
+    base = ssm_scan(a, b, h0, tile_config=TileConfig(bt=32, bd=128,
+                                                     depth=1))
+    got = ssm_scan(a, b, h0, tile_config=tc)
+    assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+
+
+@pytest.mark.parametrize("kernel,shape", [("dcim_mac", (128, 512, 512)),
+                                          ("ssm_scan", (1024, 256)),
+                                          ("csa_tree", (256, 512))])
+def test_autotune_on_the_card_and_auto_dispatch(cuda_device, kernel, shape):
+    autotune.clear_memo()
+    try:
+        res = autotune.autotune(kernel, shape, iters=2)
+        (won,) = [c for c in res.candidates if c.config == res.winner]
+        assert won.ok and won.max_err <= autotune._MAX_ERR[kernel]
+        assert all(res.candidates[i].ok for i in res.frontier)
+        counter = get_registry().counter(f"kernel/{kernel}/tile_source/memo")
+        before = counter.value
+        if kernel == "dcim_mac":
+            a, w, _, _ = operands(*shape, seed=0, device=cuda_device)
+            dcim_matmul_int(a, w, tile_config="auto")
+        elif kernel == "ssm_scan":
+            ssm_scan(*ssm_inputs(*shape, seed=0), tile_config="auto")
+        else:
+            csa_tree_sum(csa_stack(*shape, seed=0), tile_config="auto")
+        assert counter.value == before + 1
+    finally:
+        autotune.clear_memo()

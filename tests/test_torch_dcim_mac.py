@@ -25,7 +25,7 @@ from repro.kernels.dcim_mac import (dcim_matmul_int_pallas,
 from repro.kernels.dcim_mac import ref as jref
 
 from repro_torch.convert import mac_operands_from_numpy
-from repro_torch.kernels import TileConfig
+from repro_torch.kernels import DEFAULT_TILES, TileConfig
 from repro_torch.kernels.dcim_mac import (dcim_mac_cuda, dcim_mac_int_cuda,
                                           dcim_matmul, dcim_matmul_int, ref)
 
@@ -149,12 +149,29 @@ class TestWrappers:
         dcim_matmul(a, w, asc, wsc)
         assert (dcim_matmul.launches, dcim_matmul_int.launches) == before
 
-    def test_tile_config_is_not_taken_yet(self):
-        a, w, _, _ = port(*operands(8, 16, 8, seed=2))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dcim_matmul_int(a, w, tile_config=TileConfig(bm=32))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dcim_matmul(a, w, tile_config=TileConfig(bm=32))
+    @pytest.mark.parametrize("tile_config", [
+        None, TileConfig(bm=64, bn=64, bk=128), TileConfig(bk=128),
+        DEFAULT_TILES["dcim_mac"], "auto"])
+    def test_tile_config_from_the_hopper_space(self, tile_config):
+        """None, the kernel's one block (given in full or in part) and
+        "auto" are taken; every one gives the same product."""
+        a, w, asc, wsc = port(*operands(8, 16, 8, seed=2))
+        np.testing.assert_array_equal(
+            dcim_matmul_int(a, w, tile_config=tile_config).numpy(),
+            ref.dcim_matmul_int_ref(a, w).numpy())
+        np.testing.assert_array_equal(
+            dcim_matmul(a, w, asc, wsc, tile_config=tile_config).numpy(),
+            ref.dcim_matmul_ref(a, w, asc, wsc).numpy())
+
+    @pytest.mark.parametrize("tile_config", [
+        TileConfig(bm=32), TileConfig(bm=128, bn=128, bk=128),
+        TileConfig(bm=64, bn=64, bk=128, depth=4)])
+    def test_tile_config_outside_the_hopper_space_raises(self, tile_config):
+        a, w, asc, wsc = port(*operands(8, 16, 8, seed=2))
+        with pytest.raises(ValueError, match="Hopper"):
+            dcim_matmul_int(a, w, tile_config=tile_config)
+        with pytest.raises(ValueError, match="Hopper"):
+            dcim_matmul(a, w, asc, wsc, tile_config=tile_config)
 
     def test_kernel_entry_refuses_cpu_tensors(self):
         a, w, asc, wsc = port(*operands(8, 16, 8, seed=3))
