@@ -6,7 +6,13 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. device    print the card's name and power limit, build every CUDA
-               kernel of the port from ``src/repro_torch/csrc``;
+               kernel of the port from ``src/repro_torch/csrc``: the
+               hand-written sources and the ``csa_tree`` register kernels
+               generated for the row counts this run uses (one first,
+               alone, for its first-use build time), all in parallel;
+               print each kernel's registers and spill bytes from its
+               ptxas report (a spill in a ``csa_tree`` kernel fails the
+               run);
   2. compiler  the compiler's batched main path on the four scenario specs
                at the full registered lattice (155,520 points per spec):
                ``mso_search_many`` and ``design_space_sweep_many(...)
@@ -26,7 +32,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                stacks (64 x 262,144) through ``csa_tree_sum`` (rows route)
                and the whole-K stack (2560 x 262,144) through the tiled
                route, plus ragged and wrapping stacks with both compressor
-               settings; every output equal to the plain version, both
+               settings (a 300-row one through the shared-memory
+               interpreter); every output equal to the plain version, both
                reductions equal to ``dcim_matmul_int(a, w)`` bit for bit;
                times beside the plain version, ``torch.sum`` and the bound;
   5. ssm       the ``ssm_scan`` kernels on one zamba2-1.2b Mamba2 layer's
@@ -80,6 +87,12 @@ FP64_OPS_PER_S = 64 * 132 * 1.98e9
 RAGGED = (("ragged_8x16x8", 8, 16, 8), ("ragged_130x96x200", 130, 96, 200),
           ("ragged_1x512x64", 1, 512, 64))
 
+# The csa phase's ragged and wrapping stacks (H, N): one row, past the
+# whole-rows limit twice (tiled route), 300 rows (the rows route's
+# shared-memory interpreter), and 77 rows of int32 extremes.
+CSA_RAGGED = ((1, 5), (600, 300), (513, 1000), (300, 1000), (77, 999))
+CSA_MACRO_ROWS = 64
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -99,21 +112,54 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def csa_register_kernels() -> set[tuple[int, bool]]:
+    """(rows, use_compressors) of every ``csa_tree`` register kernel this
+    run launches: the rows route at each stack of at most
+    ``CSA_REG_ROWS`` rows, the tiled route at the default tile, and the
+    autotuner's candidate tiles."""
+    from repro_torch.kernels.tiles import CSA_REG_ROWS, DEFAULT_TILES
+    from repro_torch.kernels.tiles import tile_space
+    both = (True, False)
+    out = {(CSA_MACRO_ROWS, True)}
+    out |= {(h, c) for h, _ in CSA_RAGGED if h <= CSA_REG_ROWS for c in both}
+    out |= {(DEFAULT_TILES["csa_tree"].bh, c) for c in both}
+    out |= {(tc.bh, True) for kernel, shape in TUNE_TARGETS
+            if kernel == "csa_tree" for tc in tile_space(kernel, shape)}
+    return out
+
+
 def phase_device() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0])
-    from repro_torch.kernels.build import CSRC, build_library
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    from repro_torch.kernels.build import CSRC, build_library, ptxas_report
+    from repro_torch.kernels.csa_tree.kernel import register_library
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        libs = list(pool.map(build_library, names))
-    log(f"device: built {names} in {time.perf_counter() - t0:.3f} s")
+    first = register_library(CSA_MACRO_ROWS, True)
+    log(f"device: first-use build of the generated {CSA_MACRO_ROWS}-row "
+        f"csa_tree register kernel alone: {time.perf_counter() - t0:.3f} s")
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    generated = sorted(csa_register_kernels() - {(CSA_MACRO_ROWS, True)})
+    jobs = [lambda n=n: build_library(n) for n in names]
+    jobs += [lambda r=r: register_library(*r) for r in generated]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        libs = [first] + list(pool.map(lambda job: job(), jobs))
+    log(f"device: built {names} and {len(generated)} more generated "
+        f"csa_tree kernels (rows, compressors) {generated} in parallel in "
+        f"{time.perf_counter() - t0:.3f} s")
     for lib in libs:
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {lib.name}: {line.strip()}")
+        report = ptxas_report(lib.with_suffix(".log").read_text())
+        check(bool(report), f"no ptxas report for {lib.name}")
+        for fn, use in report.items():
+            log(f"  {lib.name}: {fn}: {use['registers']} registers, spill "
+                f"stores {use['spill_stores']} B, spill loads "
+                f"{use['spill_loads']} B")
+            check(not lib.name.startswith("libcsa_tree")
+                  or use["spill_stores"] == use["spill_loads"] == 0,
+                  f"{lib.name} spills")
 
 
 # ---------------------------------------------------------------------------
@@ -512,13 +558,14 @@ def phase_csa(wk) -> list[dict]:
     import torch
 
     from repro_torch.core import scenario_specs
-    from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, csa_tree_ref,
-                                              csa_tree_sum)
+    from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
+                                              csa_tree_ref, csa_tree_sum)
     from repro_torch.kernels.tiles import DEFAULT_TILES
 
     a, w, product = wk
     rows = {s.h for s in scenario_specs().values()}
-    check(rows == {64}, f"scenario macros have {rows} rows, expected 64")
+    check(rows == {CSA_MACRO_ROWS},
+          f"scenario macros have {rows} rows, expected {CSA_MACRO_ROWS}")
     macro_h = rows.pop()
     (m, k), n = a.shape, w.shape[1]
     # stack[k, m * N + n] = a[m, k] * w[k, n]: the products one macro column
@@ -529,17 +576,21 @@ def phase_csa(wk) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     extremes = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0, 1],
                             dtype=torch.int32, device="cuda")
-    ragged = {
-        "1x5": torch.randint(-2 ** 16, 2 ** 16, (1, 5), generator=g,
-                             device="cuda", dtype=torch.int32),
-        "600x300": torch.randint(-2 ** 16, 2 ** 16, (600, 300), generator=g,
-                                 device="cuda", dtype=torch.int32),
-        f"{CSA_MAX_ROWS + 1}x1000": torch.randint(
-            -2 ** 16, 2 ** 16, (CSA_MAX_ROWS + 1, 1000), generator=g,
-            device="cuda", dtype=torch.int32),
-        "extremes_77x999": extremes[torch.randint(
-            0, 5, (77, 999), generator=g, device="cuda")],
-    }
+    check(max(h for h, _ in CSA_RAGGED) > CSA_MAX_ROWS
+          and any(CSA_REG_ROWS < h <= CSA_MAX_ROWS for h, _ in CSA_RAGGED),
+          "the ragged stacks must reach the tiled route and the interpreter")
+    ragged = {}
+    for shape in CSA_RAGGED[:-1]:
+        ragged["x".join(map(str, shape))] = torch.randint(
+            -2 ** 16, 2 ** 16, shape, generator=g, device="cuda",
+            dtype=torch.int32)
+    shape = CSA_RAGGED[-1]
+    ragged["extremes_" + "x".join(map(str, shape))] = extremes[
+        torch.randint(0, 5, shape, generator=g, device="cuda")]
+
+    def launch_key(h: int) -> str:
+        return ("tiled" if h > CSA_MAX_ROWS
+                else "rows" if h <= CSA_REG_ROWS else "rows_interp")
 
     # -- the main path -------------------------------------------------------
     for key in csa_tree_sum.launches:
@@ -551,8 +602,11 @@ def phase_csa(wk) -> list[dict]:
     torch.cuda.synchronize()
     launches = dict(csa_tree_sum.launches)
     log(f"csa: launches on the main path {launches}")
-    check(launches == {"rows": len(chunks) + 4, "tiled": 1 + 4},
-          f"csa launch counts {launches}")
+    expected = {"rows": len(chunks), "tiled": 1, "rows_interp": 0}
+    for x in ragged.values():
+        expected[launch_key(x.shape[0])] += 2
+    check(launches == expected,
+          f"csa launch counts {launches}, expected {expected}")
 
     # -- held against the plain version and the MAC product -----------------
     err = 0.0
@@ -582,19 +636,26 @@ def phase_csa(wk) -> list[dict]:
     rows_lib = _time_ms(lambda: [torch.sum(x, 0, dtype=torch.int32)
                                  for x in chunks])
     rows_bound = _csa_bound_ms(macro_h, m * n)
-    bh = DEFAULT_TILES["csa_tree"].bh
     tiled_ms = _time_ms(lambda: csa_tree_sum(stack), reps=10)
     tiled_plain = _time_ms(lambda: csa_tree_ref(stack), reps=10)
     tiled_lib = _time_ms(lambda: torch.sum(stack, 0, dtype=torch.int32),
                          reps=10)
-    tiled_bound = _csa_bound_ms(k, m * n, bh)
+    tiled_bound = _csa_bound_ms(k, m * n, DEFAULT_TILES["csa_tree"].bh)
     rows_bound = (rows_bound[0] * len(chunks), rows_bound[1])
+    interp = [x for x in ragged.values() if launch_key(x.shape[0])
+              == "rows_interp"][0]
+    interp_ms = _time_ms(lambda: csa_tree_sum(interp))
+    interp_plain = _time_ms(lambda: csa_tree_ref(interp))
+    interp_lib = _time_ms(lambda: torch.sum(interp, 0, dtype=torch.int32))
+    interp_bound = _csa_bound_ms(*interp.shape)
     for name, t, plain, lib, bound in (
             ("rows", rows_ms, rows_plain, rows_lib, rows_bound),
-            ("tiled", tiled_ms, tiled_plain, tiled_lib, tiled_bound)):
+            ("tiled", tiled_ms, tiled_plain, tiled_lib, tiled_bound),
+            (f"rows_interp ({interp.shape[0]}x{interp.shape[1]})", interp_ms,
+             interp_plain, interp_lib, interp_bound)):
         log(f"csa: csa_tree_{name}: kernel {t:.6f} ms, plain {plain:.6f} ms, "
             f"torch.sum {lib:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
-    src = "src/repro_torch/csrc/csa_tree.cu"
+    src = "src/repro_torch/csrc/csa_tree_reg.cu.in"
     tpu = "src/repro/kernels/csa_tree/kernel.py"
     return [
         {"name": "csa_tree_rows", "route": "cuda", "source": src,
@@ -607,6 +668,12 @@ def phase_csa(wk) -> list[dict]:
          "max_abs_err": err, "ms": tiled_ms, "plain_ms": tiled_plain,
          "bound_ms": tiled_bound[0], "bound_by": tiled_bound[1],
          "library_ms": tiled_lib},
+        {"name": "csa_tree_rows_interp", "route": "cuda",
+         "source": "src/repro_torch/csrc/csa_tree.cu",
+         "replaces": f"{tpu}:95", "launches": launches["rows_interp"],
+         "max_abs_err": err, "ms": interp_ms, "plain_ms": interp_plain,
+         "bound_ms": interp_bound[0], "bound_by": interp_bound[1],
+         "library_ms": interp_lib},
     ]
 
 

@@ -5,8 +5,10 @@ version.
             int32, optionally with the fused per-row x per-column dequant
             epilogue.  CUDA C++ in ``csrc/dcim_mac.cu``.
   csa_tree  the Fig. 4 carry-save adder tree, executing the synthesized
-            reduction schedule, with a whole-rows and a tiled-H kernel.
-            CUDA C++ in ``csrc/csa_tree.cu``.
+            reduction schedule: straight-line register kernels generated
+            per row count from ``csrc/csa_tree_reg.cu.in`` (whole rows up
+            to 128, and tiled H), and a shared-memory interpreter for
+            129..512 whole rows in ``csrc/csa_tree.cu``.
   ssm_scan  the chunked diagonal linear recurrence (SSM decode primitive),
             a plain-load and a ``cp.async``-ring kernel.  CUDA C++ in
             ``csrc/ssm_scan.cu``.

@@ -1,60 +1,98 @@
-"""ctypes binding of the CUDA ``csa_tree`` kernels (``csrc/csa_tree.cu``).
+"""ctypes binding of the CUDA ``csa_tree`` kernels.
 
-The source is compiled for ``sm_90a`` at first use (:mod:`repro_torch.
+Two kernels execute the adder-tree schedule on the card:
+
+- the register kernel, generated per row count R <= ``CSA_REG_ROWS`` from
+  ``build_schedule(R, use_compressors)`` (:mod:`.codegen`, template
+  ``csrc/csa_tree_reg.cu.in``): the rows route for H <= ``CSA_REG_ROWS``
+  (R = H) and the tiled route (R = bh, H in tiles);
+- the shared-memory interpreter of ``csrc/csa_tree.cu``: the rows route for
+  ``CSA_REG_ROWS`` < H <= ``CSA_MAX_ROWS``, whose lanes do not fit in
+  registers.
+
+Each source is compiled for ``sm_90a`` at first use (:mod:`repro_torch.
 kernels.build`) and loaded once per process.  Each launch function checks
 its operands, allocates the output with ``torch.empty`` on the operands'
-device, uploads the schedule's op program once per (rows, compressors,
-device), launches on torch's current stream without synchronising, and
-raises if the launch was refused.  They take CUDA tensors only: the wrapper
-in :mod:`repro_torch.kernels.csa_tree.ops` routes CPU tensors to the plain
-versions.
+device, launches on torch's current stream without synchronising, and
+raises if the build or the launch failed.  Where it launches a kernel it
+adds one to :data:`LAUNCHES` under that kernel's key (``rows``,
+``rows_interp`` or ``tiled``); ``csa_tree_sum.launches`` is that dict.
+They take CUDA tensors only: the wrapper in :mod:`repro_torch.kernels.
+csa_tree.ops` routes CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from pathlib import Path
 
 import torch
 
-from ..build import build_library
-from ..tiles import TileConfig, feasible
+from ..build import build_library, build_source
+from ..tiles import CSA_REG_ROWS, TileConfig, feasible
+from . import codegen
 from .ref import build_schedule
 
-#: Row budget of the whole-rows kernel: all H rows of a block's columns sit
-#: in shared memory at once, 512 rows x 64 columns (the default block) x
-#: 4 B = 128 KiB of the 227 KB a block may use, so the JAX package's bound
-#: of 512 holds on the card too.
+#: Row budget of the whole-rows route, the JAX package's bound.  Above
+#: ``CSA_REG_ROWS`` rows the interpreter stages all H rows of its block's
+#: columns in shared memory: 512 rows x ``INTERP_THREADS`` columns x 4 B =
+#: 128 KiB of the 227 KB a block may use.
 CSA_MAX_ROWS = 512
+
+#: Columns (threads) of an interpreter block, whatever ``bn`` the caller
+#: gives: its shared memory grows with H x bn.
+INTERP_THREADS = 64
+
+#: Kernel launches, by kernel: ``rows`` the register kernel on a whole
+#: stack, ``tiled`` the register kernel over H tiles, ``rows_interp`` the
+#: shared-memory interpreter.  Added to where each kernel is launched.
+LAUNCHES = {"rows": 0, "tiled": 0, "rows_interp": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
+def _interp_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library("csa_tree")))
     lib.csa_tree_rows.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.csa_tree_rows.restype = _I
-    lib.csa_tree_tiled.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    lib.csa_tree_tiled.restype = _I
     lib.csa_tree_error_string.argtypes = [_I]
     lib.csa_tree_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def register_library(rows: int, use_compressors: bool) -> Path:
+    """Build (at first use) the register kernel for ``rows`` rows and
+    return its library's path."""
+    return build_source(codegen.library_name(rows, use_compressors),
+                        codegen.source(rows, use_compressors))
+
+
+@functools.cache
+def _reg_lib(rows: int, use_compressors: bool) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(register_library(rows, use_compressors)))
+    lib.csa_tree_reg.argtypes = [_P, _P, _I, _I, _I, _P]
+    lib.csa_tree_reg.restype = _I
+    lib.csa_tree_reg_error_string.argtypes = [_I]
+    lib.csa_tree_reg_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.cache
 def _program(rows: int, use_compressors: bool, device: torch.device
              ) -> tuple[torch.Tensor, int, int]:
-    """The ``rows``-row op program on ``device``: (ops, n_ops, result)."""
+    """The interpreter's ``rows``-row op program on ``device``: (ops,
+    n_ops, result)."""
     sched = build_schedule(rows, use_compressors)
     ops = torch.as_tensor(sched.ops, dtype=torch.int32, device=device)
     return ops.contiguous(), len(sched.ops), sched.result
 
 
-def _check(err: int, name: str) -> None:
+def _check(err: int, name: str, error_string) -> None:
     if err != 0:
-        msg = _lib().csa_tree_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
 
 
@@ -86,45 +124,62 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def rows_kernel(h: int) -> str:
+    """The kernel the rows route launches on an ``h``-row stack: ``rows``
+    (the generated register kernel) up to ``CSA_REG_ROWS`` rows,
+    ``rows_interp`` (the shared-memory interpreter) above."""
+    return "rows" if h <= CSA_REG_ROWS else "rows_interp"
+
+
+def _launch_reg(operands: torch.Tensor, rows: int, use_compressors: bool,
+                bn: int, key: str) -> torch.Tensor:
+    h, n = operands.shape
+    out = torch.empty((n,), dtype=torch.int32, device=operands.device)
+    if n:
+        lib = _reg_lib(rows, use_compressors)
+        with torch.cuda.device(operands.device):
+            _check(lib.csa_tree_reg(operands.data_ptr(), out.data_ptr(), h, n,
+                                    bn, _stream(operands)),
+                   f"csa_tree_reg (R={rows})", lib.csa_tree_reg_error_string)
+        LAUNCHES[key] += 1
+    return out
+
+
 def csa_tree_rows_cuda(operands: torch.Tensor, *, use_compressors: bool = True,
-                       bn: int = 64) -> torch.Tensor:
-    """(H, N) int32 -> (N,) int32 column sums on the card, all H rows of a
-    block of ``bn`` columns staged at once.  Requires H <= ``CSA_MAX_ROWS``;
-    taller stacks go through :func:`csa_tree_tiled_cuda` (``csa_tree_sum``
-    routes there)."""
+                       bn: int = 256) -> torch.Tensor:
+    """(H, N) int32 -> (N,) int32 column sums on the card by the H-row
+    schedule: the generated H-row register kernel in blocks of ``bn``
+    columns for H <= ``CSA_REG_ROWS``, the shared-memory interpreter (blocks
+    of ``INTERP_THREADS`` columns) up to ``CSA_MAX_ROWS``.  Taller stacks go
+    through :func:`csa_tree_tiled_cuda` (``csa_tree_sum`` routes there)."""
     if operands.shape[0] > CSA_MAX_ROWS:
         raise ValueError(
-            f"csa_tree_rows_cuda keeps all H rows of a block in shared "
-            f"memory; H={operands.shape[0]} exceeds the H<={CSA_MAX_ROWS} "
-            f"limit — use csa_tree_tiled_cuda (csa_tree_sum routes "
-            f"automatically)")
+            f"csa_tree_rows_cuda runs the whole H-row schedule at once; "
+            f"H={operands.shape[0]} exceeds the H<={CSA_MAX_ROWS} limit — "
+            f"use csa_tree_tiled_cuda (csa_tree_sum routes automatically)")
     h, n = _check_operands(operands)
-    _check_block(h, bn)
+    _check_block(min(h, CSA_REG_ROWS), bn)
+    if rows_kernel(h) == "rows":
+        return _launch_reg(operands, h, use_compressors, bn, "rows")
     ops, n_ops, result = _program(h, use_compressors, operands.device)
     out = torch.empty((n,), dtype=torch.int32, device=operands.device)
     if n:
+        lib = _interp_lib()
         with torch.cuda.device(operands.device):
-            _check(_lib().csa_tree_rows(operands.data_ptr(), out.data_ptr(),
-                                        ops.data_ptr(), n_ops, result, h, n,
-                                        bn, _stream(operands)),
-                   "csa_tree_rows")
+            _check(lib.csa_tree_rows(operands.data_ptr(), out.data_ptr(),
+                                     ops.data_ptr(), n_ops, result, h, n,
+                                     INTERP_THREADS, _stream(operands)),
+                   "csa_tree_rows", lib.csa_tree_error_string)
+        LAUNCHES["rows_interp"] += 1
     return out
 
 
 def csa_tree_tiled_cuda(operands: torch.Tensor, *,
                         use_compressors: bool = True, bh: int = 128,
-                        bn: int = 64) -> torch.Tensor:
+                        bn: int = 256) -> torch.Tensor:
     """(H, N) int32 -> (N,) int32 column sums on the card for any H: the
-    bh-row schedule over H tiles in sequence, the tile sums accumulated in
-    int32 (rows past H read as 0)."""
-    h, n = _check_operands(operands)
+    generated bh-row register kernel over H tiles in sequence, the tile
+    sums accumulated in 32 bits (rows past H read as 0)."""
+    _check_operands(operands)
     _check_block(bh, bn)
-    ops, n_ops, result = _program(bh, use_compressors, operands.device)
-    out = torch.empty((n,), dtype=torch.int32, device=operands.device)
-    if n:
-        with torch.cuda.device(operands.device):
-            _check(_lib().csa_tree_tiled(operands.data_ptr(), out.data_ptr(),
-                                         ops.data_ptr(), n_ops, result, bh, h,
-                                         n, bn, _stream(operands)),
-                   "csa_tree_tiled")
-    return out
+    return _launch_reg(operands, bh, use_compressors, bn, "tiled")

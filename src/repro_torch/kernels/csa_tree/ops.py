@@ -1,15 +1,19 @@
 """Entry point for the carry-save adder-tree reduction.
 
 ``csa_tree_sum`` takes an (H, N) int32 tensor and dispatches on where it
-lies: a CUDA tensor launches the hand-written Hopper kernel
+lies: a CUDA tensor launches the hand-written Hopper kernels
 (:mod:`repro_torch.kernels.csa_tree.kernel`) or raises; a CPU tensor runs
 the plain version.  It routes as the JAX package's ``csa_tree_sum`` does:
-the whole-rows kernel for H <= ``CSA_MAX_ROWS``, the tiled-H kernel for
+the whole-rows route for H <= ``CSA_MAX_ROWS``, the tiled-H route for
 taller stacks or whenever a ``tile_config`` is given (``None``, a
 :class:`~repro_torch.kernels.tiles.TileConfig`, or ``"auto"`` for the
 autotuner's winner).  Every call goes through :func:`~repro_torch.kernels.
-instrument.dispatch_span`; ``csa_tree_sum.launches`` counts the kernel
-launches per route.
+instrument.dispatch_span`, whose span also carries the kernel the route
+runs (tag ``kernel``).  ``csa_tree_sum.launches`` is the count the launch
+functions keep (:data:`~repro_torch.kernels.csa_tree.kernel.LAUNCHES`):
+``rows`` and ``tiled`` the launches of the generated register kernels,
+``rows_interp`` those of the shared-memory interpreter (the rows route
+above ``CSA_REG_ROWS`` rows).
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ import torch
 from ..autotune import select_tile
 from ..instrument import dispatch_span
 from ..tiles import TileConfig
-from .kernel import CSA_MAX_ROWS, csa_tree_rows_cuda, csa_tree_tiled_cuda
+from .kernel import (CSA_MAX_ROWS, LAUNCHES, csa_tree_rows_cuda,
+                     csa_tree_tiled_cuda, rows_kernel)
 from .ref import csa_tree_ref
 
 
@@ -33,20 +38,18 @@ def csa_tree_sum(operands: torch.Tensor, *, use_compressors: bool = True,
     route = ("tiled" if shape[0] > CSA_MAX_ROWS or tile_config is not None
              else "rows")
     with dispatch_span("csa_tree", shape, tc, source, route,
-                       operands.device):
+                       operands.device) as span:
+        if span:
+            span.set_tag("kernel", route if route == "tiled"
+                         else rows_kernel(shape[0]))
         if not operands.is_cuda:
             return csa_tree_ref(operands)
         if route == "tiled":
-            out = csa_tree_tiled_cuda(operands,
-                                      use_compressors=use_compressors,
-                                      bh=tc.bh, bn=tc.bn)
-        else:
-            out = csa_tree_rows_cuda(operands,
-                                     use_compressors=use_compressors,
-                                     bn=tc.bn)
-        if shape[1]:
-            csa_tree_sum.launches[route] += 1
-        return out
+            return csa_tree_tiled_cuda(operands,
+                                       use_compressors=use_compressors,
+                                       bh=tc.bh, bn=tc.bn)
+        return csa_tree_rows_cuda(operands, use_compressors=use_compressors,
+                                  bn=tc.bn)
 
 
-csa_tree_sum.launches = {"rows": 0, "tiled": 0}
+csa_tree_sum.launches = LAUNCHES

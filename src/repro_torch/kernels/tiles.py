@@ -18,7 +18,10 @@ shared memory one block may use (:data:`SMEM_BUDGET_BYTES` in place of the
 TPU's 12 MiB VMEM budget), and a dimension that maps onto threads is a
 multiple of the warp (:data:`WARP` in place of the TPU's 128-lane and
 8-sublane alignment).  The working set of a candidate is the port kernel's
-own shared-memory use (:func:`smem_bytes`).
+own shared-memory use (:func:`smem_bytes`).  The ``csa_tree`` register
+kernel uses none: its tile of bh rows lives in registers, so bh is capped
+by :data:`CSA_REG_ROWS` and bn by the kernel's launch bound
+:data:`CSA_THREADS`.
 """
 
 from __future__ import annotations
@@ -41,6 +44,17 @@ MAX_THREADS = 1024
 #: Pipeline depths the ``ssm_scan`` kernel is compiled for (1 is the
 #: plain-load kernel, 2..4 the ``cp.async`` ring).
 SSM_DEPTHS = (1, 2, 3, 4)
+
+#: Rows the ``csa_tree`` register kernel holds in registers, one lane a
+#: row.  Its 128-row kernels take 85 (compressors) and 99 (full adders
+#: only) registers on sm_90a and spill nothing; a 256-row unroll risks
+#: spilling past Hopper's 255 a thread.
+CSA_REG_ROWS = 128
+
+#: Threads a block of the ``csa_tree`` register kernel may have (its
+#: ``__launch_bounds__``, so the 128-row kernel may take up to 255
+#: registers a thread).
+CSA_THREADS = 256
 
 
 @dataclass(frozen=True)
@@ -76,13 +90,14 @@ class TileConfig:
 #:             ``csrc/dcim_mac.cu`` is compiled for (TPU: 128 x 128 x 128);
 #:   ssm_scan  bt 32 (TPU: 128): two stages of 128-row (a, b) chunks of
 #:             128 columns would need 256 KiB of shared memory;
-#:   csa_tree  bn 64 (TPU: 256): the whole-rows kernel keeps all
-#:             ``CSA_MAX_ROWS`` = 512 rows of its columns in shared memory,
-#:             512 x 64 x 4 B = 128 KiB.
+#:   csa_tree  bh 128 / bn 256 (the TPU's): the register kernel's largest
+#:             tile; on an H100, 256-thread blocks ran the 2560-row
+#:             qwen3-4b wk product stack 1.7% faster than 128-thread
+#:             ones and a 64-row chunk as fast (``probes/csa_stage.py``).
 DEFAULT_TILES: dict[str, TileConfig] = {
     "dcim_mac": TileConfig(bm=64, bn=64, bk=128, depth=2),
     "ssm_scan": TileConfig(bt=32, bd=128, depth=2),
-    "csa_tree": TileConfig(bh=128, bn=64, depth=1),
+    "csa_tree": TileConfig(bh=128, bn=256, depth=1),
 }
 
 KERNELS = tuple(DEFAULT_TILES)
@@ -111,7 +126,7 @@ def smem_bytes(kernel: str, cfg: TileConfig) -> int:
     if kernel == "ssm_scan":
         return 4 * 2 * cfg.depth * cfg.bt * cfg.bd
     if kernel == "csa_tree":
-        return 4 * cfg.bh * cfg.bn
+        return 0
     raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
 
 
@@ -129,7 +144,8 @@ def feasible(kernel: str, cfg: TileConfig) -> bool:
     elif kernel == "csa_tree":
         # depth has no meaning for the adder tree (the JAX package's
         # configs carry any value there)
-        ok = cfg.bh is not None and cfg.bh >= 1 and _threads_ok(cfg.bn)
+        ok = (cfg.bh is not None and 1 <= cfg.bh <= CSA_REG_ROWS
+              and _threads_ok(cfg.bn) and cfg.bn <= CSA_THREADS)
     else:
         raise ValueError(f"unknown kernel {kernel!r}; have {KERNELS}")
     return ok and smem_bytes(kernel, cfg) <= SMEM_BUDGET_BYTES
@@ -173,6 +189,16 @@ def tile_space(kernel: str, shape: tuple[int, ...]) -> list[TileConfig]:
     return out
 
 
+_RULES = {
+    "dcim_mac": "its one compiled block",
+    "ssm_scan": f"shared memory of {SMEM_BUDGET_BYTES} B a block; bd a "
+                f"multiple of {WARP} up to {MAX_THREADS}; depth in "
+                f"{SSM_DEPTHS}",
+    "csa_tree": f"bh 1..{CSA_REG_ROWS} rows in registers; bn a multiple of "
+                f"{WARP} up to {CSA_THREADS}",
+}
+
+
 def resolve_tile(kernel: str, tile_config: "TileConfig | None") -> TileConfig:
     """Fill unset fields of an explicit config from the kernel default and
     check it against Hopper (:func:`feasible`); raises ValueError if the
@@ -189,7 +215,5 @@ def resolve_tile(kernel: str, tile_config: "TileConfig | None") -> TileConfig:
     if not feasible(kernel, merged):
         raise ValueError(
             f"{kernel} cannot launch with {merged.as_dict()} on Hopper "
-            f"(shared memory {smem_bytes(kernel, merged)} B of "
-            f"{SMEM_BUDGET_BYTES}; thread dims multiples of {WARP} up to "
-            f"{MAX_THREADS}); e.g. {DEFAULT_TILES[kernel].as_dict()}")
+            f"({_RULES[kernel]}); e.g. {DEFAULT_TILES[kernel].as_dict()}")
     return merged

@@ -7,10 +7,14 @@ every output must equal the reference's bits.
 
 Equality with the column sum holds for any correct carry-save schedule, so
 it cannot show that the schedule was ported; ``TestSchedule`` does: the op
-program the CUDA kernel runs (``build_schedule``), executed in torch by
+program the CUDA kernels run (``build_schedule``), executed in torch by
 ``reduce_levels``, gives the same lanes as the JAX package's
-``_reduce_level`` at every level.  The CUDA kernel itself is held against
-the plain version on the card (``tests/test_torch_cuda.py``,
+``_reduce_level`` at every level.  ``TestCodegen`` holds the straight-line
+source generated for the register kernel to that program: its statements,
+read back, are the program op for op for every row count the kernel
+takes, and a numpy ``uint32`` evaluator of those statements equals the
+JAX package's kernels.  The CUDA kernels themselves are held against the
+plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
@@ -25,11 +29,14 @@ from repro.kernels.csa_tree import kernel as jax_kernel
 
 from repro_torch.convert import csa_operands_from_numpy
 from repro_torch.kernels import TileConfig, autotune
-from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, build_schedule,
+from repro_torch.kernels.build import ptxas_report, source_library_path
+from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
+                                          build_schedule, codegen,
                                           csa_tree_ref, csa_tree_rows_cuda,
                                           csa_tree_sum, csa_tree_tiled_cuda,
                                           reduce_lanes, reduce_levels)
-from repro_torch.kernels.csa_tree.ref import FA, ZERO
+from repro_torch.kernels.csa_tree import kernel as csa_kernel
+from repro_torch.kernels.csa_tree.ref import ADD, FA, ZERO
 from repro_torch.obs.metrics import get_registry
 
 HEIGHTS = [1, 2, 3, 4, 5, 7, 64, 130, 600]
@@ -157,6 +164,119 @@ class TestSchedule:
             build_schedule(0)
 
 
+def run_generated(text, x):
+    """A numpy ``uint32`` evaluator of a generated register kernel: its
+    statements, read back from ``text``, on each R-row tile of the (H, N)
+    int32 stack ``x`` (rows past H read 0), the tile sums added into a
+    32-bit accumulator, as ``csa_reg_kernel`` runs them."""
+    loads, ops, result = codegen.read_back(text)
+    rows = len(loads)
+    h, n = x.shape
+    words = np.zeros((-(-h // rows) * rows, n), np.uint32)
+    words[:h] = x.view(np.uint32)
+    acc = np.zeros(n, np.uint32)
+    for tile in words.reshape(-1, rows, n):
+        lane = {slot: tile[row].copy() for slot, row in zip(loads, loads)}
+        for kind, a, b, c in ops.tolist():
+            if kind == FA:
+                u, v = lane[a], lane[b]
+                w = np.zeros(n, np.uint32) if c == ZERO else lane[c]
+                lane[a] = u ^ v ^ w
+                lane[b] = ((u & v) | (v & w) | (u & w)) << np.uint32(1)
+            else:
+                assert kind == ADD
+                lane[a] = u32_add(lane[a], lane[b])
+        acc = u32_add(acc, lane[result])
+    return acc.view(np.int32)
+
+
+def u32_add(a, b):
+    return ((a.astype(np.uint64) + b) & 0xFFFFFFFF).astype(np.uint32)
+
+
+def mixed_stack(h, n, seed):
+    """Random rows with the int32 extremes scattered through them."""
+    x = stack(h, n, seed=seed)
+    rng = np.random.default_rng(seed)
+    pick = rng.random((h, n)) < 0.3
+    x[pick] = rng.choice(np.array([INT32_MIN, INT32_MAX, -1, 0, 1],
+                                  np.int32), int(pick.sum()))
+    return x
+
+
+class TestCodegen:
+    """The register kernel's generated source against the schedule and the
+    JAX package's kernels."""
+
+    @pytest.mark.parametrize("rows", range(1, CSA_REG_ROWS + 1))
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_statements_are_the_schedule(self, rows, use_compressors):
+        text = codegen.source(rows, use_compressors)
+        loads, ops, result = codegen.read_back(text)
+        sched = build_schedule(rows, use_compressors)
+        assert loads == list(range(rows))
+        np.testing.assert_array_equal(ops, sched.ops)
+        assert result == sched.result
+        assert f"constexpr int kRows = {rows};" in text
+        assert "@" not in text
+
+    @pytest.mark.parametrize("rows", [1, 2, 3, 5, 64, 77, 128])
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_evaluator_equals_whole_rows_pallas(self, rows, use_compressors):
+        x = mixed_stack(rows, 67, seed=rows)
+        want = np.asarray(csa_tree_pallas(jnp.asarray(x),
+                                          use_compressors=use_compressors,
+                                          interpret=True))
+        got = run_generated(codegen.source(rows, use_compressors), x)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, wrapped_sum(x))
+
+    @pytest.mark.parametrize("bh", [32, 64, 128])
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_evaluator_equals_tiled_pallas(self, bh, use_compressors):
+        x = mixed_stack(300, 41, seed=bh)
+        want = np.asarray(csa_tree_tiled_pallas(
+            jnp.asarray(x), use_compressors=use_compressors, bh=bh,
+            interpret=True))
+        got = run_generated(codegen.source(bh, use_compressors), x)
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("rows", [0, CSA_REG_ROWS + 1])
+    def test_rows_outside_registers_raise(self, rows):
+        with pytest.raises(ValueError, match="registers"):
+            codegen.source(rows)
+
+    def test_library_keyed_on_text(self):
+        a = codegen.source(64, True)
+        b = codegen.source(64, False)
+        name = codegen.library_name(64, True)
+        assert name != codegen.library_name(64, False)
+        assert source_library_path(name, a) == source_library_path(name, a)
+        assert source_library_path(name, a) != source_library_path(name, b)
+        assert source_library_path(name, a).parent.name == "kernels"
+
+    def test_ptxas_report(self):
+        log = "\n".join([
+            "ptxas info    : 0 bytes gmem",
+            "ptxas info    : Compiling entry function '_Z3fooPi' for "
+            "'sm_90a'",
+            "ptxas info    : Function properties for _Z3fooPi",
+            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+            "loads",
+            "ptxas info    : Used 142 registers, used 0 barriers, 380 bytes "
+            "cmem[0]",
+            "ptxas info    : Compiling entry function '_Z3barPi' for "
+            "'sm_90a'",
+            "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+            "loads",
+            "ptxas info    : Used 255 registers"])
+        assert ptxas_report(log) == {
+            "_Z3fooPi": {"registers": 142, "spill_stores": 0,
+                         "spill_loads": 0},
+            "_Z3barPi": {"registers": 255, "spill_stores": 8,
+                         "spill_loads": 4}}
+
+
 class TestEntryPoint:
     @staticmethod
     def kernel_counters():
@@ -190,6 +310,16 @@ class TestEntryPoint:
         before = dict(csa_tree_sum.launches)
         csa_tree_sum(port(stack(600)))
         assert csa_tree_sum.launches == before
+
+    def test_launches_are_the_launch_functions_count(self):
+        assert csa_tree_sum.launches is csa_kernel.LAUNCHES
+        assert set(csa_tree_sum.launches) == {"rows", "tiled", "rows_interp"}
+
+    @pytest.mark.parametrize("h,kernel", [
+        (1, "rows"), (CSA_REG_ROWS, "rows"), (CSA_REG_ROWS + 1, "rows_interp"),
+        (CSA_MAX_ROWS, "rows_interp")])
+    def test_rows_route_kernel(self, h, kernel):
+        assert csa_kernel.rows_kernel(h) == kernel
 
     def test_infeasible_tile_raises(self):
         with pytest.raises(ValueError, match="Hopper"):

@@ -27,8 +27,11 @@ from repro_torch.core import subcircuits as sc
 from repro_torch.convert import (csa_operands_from_numpy,
                                  ssm_operands_from_numpy)
 from repro_torch.kernels import TileConfig, autotune
-from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, csa_tree_ref,
-                                          csa_tree_rows_cuda, csa_tree_sum)
+from repro_torch.kernels.build import ptxas_report
+from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
+                                          csa_tree_ref, csa_tree_rows_cuda,
+                                          csa_tree_sum, csa_tree_tiled_cuda)
+from repro_torch.kernels.csa_tree.kernel import register_library
 from repro_torch.kernels.dcim_mac import dcim_matmul, dcim_matmul_int, ref
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
 from repro_torch.obs.metrics import get_registry
@@ -114,7 +117,7 @@ def test_compiler_device_path_equals_cpu(cuda_device):
 
 
 # csa_tree: one row, ragged columns, the macro's 64 rows, past a 128-row
-# tile, the whole-rows limit, and past it
+# tile (the interpreter), the whole-rows limit, and past it
 CSA_SHAPES = [(1, 5), (2, 33), (7, 100), (64, 1000), (130, 257),
               (CSA_MAX_ROWS, 64), (600, 300)]
 
@@ -135,16 +138,17 @@ def csa_stack(h, n, seed, extremes=False):
 def test_csa_tree_kernel_equals_plain_version(cuda_device, h, n,
                                               use_compressors, extremes):
     x = csa_stack(h, n, seed=h * 7 + n, extremes=extremes)
-    route = "rows" if h <= CSA_MAX_ROWS else "tiled"
+    key = ("tiled" if h > CSA_MAX_ROWS
+           else "rows" if h <= CSA_REG_ROWS else "rows_interp")
     before = dict(csa_tree_sum.launches)
     got = csa_tree_sum(x, use_compressors=use_compressors)
-    assert csa_tree_sum.launches[route] == before[route] + 1
+    assert csa_tree_sum.launches[key] == before[key] + 1
     assert torch.equal(got, csa_tree_ref(x))
 
 
 @pytest.mark.parametrize("tc", [TileConfig(bh=32, bn=32),
                                 TileConfig(bh=128, bn=64),
-                                TileConfig(bh=256, bn=128),
+                                TileConfig(bh=128, bn=256),
                                 TileConfig(bh=7, bn=96)])
 def test_csa_tree_tiled_kernel_equals_plain_version(cuda_device, tc):
     for h, n in CSA_SHAPES:
@@ -152,6 +156,67 @@ def test_csa_tree_tiled_kernel_equals_plain_version(cuda_device, tc):
         before = csa_tree_sum.launches["tiled"]
         assert torch.equal(csa_tree_sum(x, tile_config=tc), csa_tree_ref(x))
         assert csa_tree_sum.launches["tiled"] == before + 1
+
+
+@pytest.mark.parametrize("h", [1, 2, 3, 64, 77, 128])
+@pytest.mark.parametrize("use_compressors", [True, False])
+def test_csa_tree_register_kernel_equals_plain_version(cuda_device, h,
+                                                       use_compressors):
+    """The generated h-row register kernel (the rows route)."""
+    for n, extremes in ((1000, False), (999, True)):
+        x = csa_stack(h, n, seed=h + n, extremes=extremes)
+        before = dict(csa_tree_sum.launches)
+        got = csa_tree_sum(x, use_compressors=use_compressors)
+        assert csa_tree_sum.launches == {**before,
+                                         "rows": before["rows"] + 1}
+        assert torch.equal(got, csa_tree_ref(x))
+
+
+@pytest.mark.parametrize("bh", [32, 64, 77, 128])
+@pytest.mark.parametrize("use_compressors", [True, False])
+def test_csa_tree_tiled_ragged_last_tile(cuda_device, bh, use_compressors):
+    """Full tiles and a ragged last one (rows past H read 0), and a stack
+    shorter than one tile."""
+    for h in (3 * bh + 5, bh - 1 or 1):
+        x = csa_stack(h, 515, seed=bh + h, extremes=True)
+        got = csa_tree_tiled_cuda(x, use_compressors=use_compressors, bh=bh)
+        assert torch.equal(got, csa_tree_ref(x))
+
+
+@pytest.mark.parametrize("use_compressors", [True, False])
+def test_csa_tree_interpreter_at_300_rows(cuda_device, use_compressors):
+    x = csa_stack(300, 1000, seed=300, extremes=True)
+    before = dict(csa_tree_sum.launches)
+    got = csa_tree_sum(x, use_compressors=use_compressors)
+    assert csa_tree_sum.launches == {
+        **before, "rows_interp": before["rows_interp"] + 1}
+    assert torch.equal(got, csa_tree_ref(x))
+
+
+@pytest.mark.parametrize("h,route,key", [(64, "rows", "rows"),
+                                          (300, "rows", "rows_interp"),
+                                          (300, "tiled", "tiled")])
+def test_csa_tree_launch_functions_count_their_kernel(cuda_device, h, route,
+                                                      key):
+    """The kernel entry points count where they launch, under the key of
+    the kernel that ran."""
+    x = csa_stack(h, 257, seed=h, extremes=True)
+    fn = csa_tree_rows_cuda if route == "rows" else csa_tree_tiled_cuda
+    before = dict(csa_tree_sum.launches)
+    got = fn(x)
+    assert csa_tree_sum.launches == {**before, key: before[key] + 1}
+    assert torch.equal(got, csa_tree_ref(x))
+
+
+@pytest.mark.parametrize("use_compressors", [True, False])
+def test_csa_tree_register_kernel_does_not_spill(cuda_device,
+                                                 use_compressors):
+    lib = register_library(CSA_REG_ROWS, use_compressors)
+    report = ptxas_report(lib.with_suffix(".log").read_text())
+    assert report
+    for usage in report.values():
+        assert usage["spill_stores"] == usage["spill_loads"] == 0
+        assert usage["registers"] <= 255
 
 
 def test_csa_tree_whole_rows_guard(cuda_device):

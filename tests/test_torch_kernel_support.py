@@ -28,9 +28,9 @@ from repro_torch.kernels import (DEFAULT_TILES, TileConfig, autotune,
                                  csa_tree_sum, dcim_matmul_int, resolve_tile,
                                  shape_class, ssm_scan, tile_space)
 from repro_torch.kernels.autotune import TILE_SCHEMA, tile_key
-from repro_torch.kernels.tiles import (KERNELS, MAX_THREADS,
-                                       SMEM_BUDGET_BYTES, WARP, feasible,
-                                       smem_bytes)
+from repro_torch.kernels.tiles import (CSA_REG_ROWS, CSA_THREADS, KERNELS,
+                                       MAX_THREADS, SMEM_BUDGET_BYTES, WARP,
+                                       feasible, smem_bytes)
 from repro_torch.obs import tracer
 from repro_torch.obs.metrics import get_registry
 
@@ -86,6 +86,12 @@ class TestTiles:
             threads = {"dcim_mac": 128, "ssm_scan": tc.bd,
                        "csa_tree": tc.bn}[kernel]
             assert threads % WARP == 0 and threads <= MAX_THREADS
+            if kernel == "csa_tree":
+                # the register kernel: its rows in registers, no shared
+                # memory, blocks within its launch bound
+                assert 1 <= tc.bh <= CSA_REG_ROWS
+                assert threads <= CSA_THREADS
+                assert smem_bytes(kernel, tc) == 0
         if DEFAULT_TILES[kernel] in space:
             assert space[0] == DEFAULT_TILES[kernel]
 
@@ -96,6 +102,11 @@ class TestTiles:
         assert space[0] == DEFAULT_TILES[kernel] and len(space) > 1
         lattice = {"ssm_scan": 4 * 4 * 3, "csa_tree": 4 * 4}[kernel]
         assert len(space) < lattice
+        if kernel == "csa_tree":
+            # pruned by the register cap, not by shared memory: every
+            # 256-row tile goes, every tile of at most 128 rows stays
+            assert {tc.bh for tc in space} == {32, 64, 128}
+            assert len(space) == 3 * 4
 
     def test_small_shapes_prune_the_default(self):
         space = tile_space("ssm_scan", (16, 8))
@@ -127,6 +138,8 @@ class TestTiles:
         assert resolve_tile("csa_tree", None) == DEFAULT_TILES["csa_tree"]
         with pytest.raises(ValueError, match="Hopper"):
             resolve_tile("csa_tree", TileConfig(bh=512, bn=256))
+        with pytest.raises(ValueError, match="registers"):
+            resolve_tile("csa_tree", TileConfig(bh=CSA_REG_ROWS + 1, bn=128))
         with pytest.raises(TypeError, match="TileConfig"):
             resolve_tile("csa_tree", {"bh": 32})
 
@@ -280,6 +293,23 @@ class TestDispatchSpan:
         assert span.tags["tile_source"] == "explicit"
         assert span.tags["device"] == "cpu"
         assert span.tags["tile"] == {"bn": 64, "bh": 32, "depth": 2}
+
+    @pytest.mark.parametrize("h,tile_config,kernel", [
+        (64, None, "rows"), (300, None, "rows_interp"), (600, None, "tiled"),
+        (8, TileConfig(bh=32, bn=64), "tiled")])
+    def test_csa_tree_span_names_its_kernel(self, h, tile_config, kernel):
+        tracer.configure(enabled=True, sample=1.0)
+        tracer.clear()
+        try:
+            x = torch.zeros((h, 40), dtype=torch.int32)
+            with tracer.start_trace("request"):
+                csa_tree_sum(x, tile_config=tile_config)
+            spans = [s for s in tracer.drain() if s.name == "kernel.csa_tree"]
+        finally:
+            tracer.configure(enabled=False)
+            tracer.clear()
+        (span,) = spans
+        assert span.tags["kernel"] == kernel
 
     def test_untraced_calls_open_no_span(self):
         tracer.clear()
