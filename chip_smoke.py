@@ -29,19 +29,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
                plain version, ``torch._int_mm`` and its bound;
   4. csa       the ``csa_tree`` kernels on the qwen3-4b wk GEMM executed on
                the scenario specs' 64-row macro: the 40 K-chunk product
-               stacks (64 x 262,144) through ``csa_tree_sum`` (rows route)
-               and the whole-K stack (2560 x 262,144) through the tiled
-               route, plus ragged and wrapping stacks with both compressor
-               settings (a 300-row one through the shared-memory
-               interpreter); every output equal to the plain version, both
-               reductions equal to ``dcim_matmul_int(a, w)`` bit for bit;
-               times beside the plain version, ``torch.sum`` and the bound;
+               stacks (64 x 262,144) through ``csa_tree_sum`` (rows route),
+               the same product cut into the 10 K-chunks of a 256-row macro
+               (256 x 262,144, the tall rows route) and the whole-K stack
+               (2560 x 262,144) through the tiled route, plus ragged and
+               wrapping stacks with both compressor settings (129 to 512
+               rows on the tall rows route); every output equal to the
+               plain version, the three reductions equal to
+               ``dcim_matmul_int(a, w)`` bit for bit; times beside the
+               plain version, ``torch.sum`` and the bound;
   5. ssm       the ``ssm_scan`` kernels on one zamba2-1.2b Mamba2 layer's
                SSD state (64 heads x 64 x 64 = 262,144 columns) over 1024
-               steps, and at (1024, 256), (4096, 256) and (1000, 300):
-               depths 1, 2 and 4 equal bit for bit, each within the JAX
-               package's tolerance of the sequential plain version; times
-               beside the plain version and the bound;
+               steps, and at (1024, 256), (4096, 256) and (1000, 300),
+               each with the chunk split (S, L) it runs: depths 1 to 4
+               equal bit for bit to one another and to the chunked plain
+               version, each within the JAX package's tolerance of the
+               sequential plain version; each depth's time beside the
+               plain version and the bound;
   6. autotune  the tile autotuner on the card for the warm-cache script's
                default targets (each winner within its exactness gate),
                then one ``tile_config="auto"`` call of each entry point,
@@ -88,10 +92,13 @@ RAGGED = (("ragged_8x16x8", 8, 16, 8), ("ragged_130x96x200", 130, 96, 200),
           ("ragged_1x512x64", 1, 512, 64))
 
 # The csa phase's ragged and wrapping stacks (H, N): one row, past the
-# whole-rows limit twice (tiled route), 300 rows (the rows route's
-# shared-memory interpreter), and 77 rows of int32 extremes.
-CSA_RAGGED = ((1, 5), (600, 300), (513, 1000), (300, 1000), (77, 999))
+# whole-rows limit twice (tiled route), 129 to 512 rows (the rows route's
+# tall register kernels), and 77 rows of int32 extremes.
+CSA_RAGGED = ((1, 5), (600, 300), (513, 1000), (129, 1000), (256, 1000),
+              (300, 1000), (512, 1000), (77, 999))
+# The scenario specs' macro height, and a 256-row macro's (MacroSpec(h=256))
 CSA_MACRO_ROWS = 64
+CSA_TALL_MACRO_ROWS = 256
 
 
 class SmokeFailure(RuntimeError):
@@ -115,13 +122,13 @@ def log(msg: str) -> None:
 def csa_register_kernels() -> set[tuple[int, bool]]:
     """(rows, use_compressors) of every ``csa_tree`` register kernel this
     run launches: the rows route at each stack of at most
-    ``CSA_REG_ROWS`` rows, the tiled route at the default tile, and the
+    ``CSA_MAX_ROWS`` rows, the tiled route at the default tile, and the
     autotuner's candidate tiles."""
-    from repro_torch.kernels.tiles import CSA_REG_ROWS, DEFAULT_TILES
+    from repro_torch.kernels.tiles import CSA_MAX_ROWS, DEFAULT_TILES
     from repro_torch.kernels.tiles import tile_space
     both = (True, False)
-    out = {(CSA_MACRO_ROWS, True)}
-    out |= {(h, c) for h, _ in CSA_RAGGED if h <= CSA_REG_ROWS for c in both}
+    out = {(CSA_MACRO_ROWS, True), (CSA_TALL_MACRO_ROWS, True)}
+    out |= {(h, c) for h, _ in CSA_RAGGED if h <= CSA_MAX_ROWS for c in both}
     out |= {(DEFAULT_TILES["csa_tree"].bh, c) for c in both}
     out |= {(tc.bh, True) for kernel, shape in TUNE_TARGETS
             if kernel == "csa_tree" for tc in tile_space(kernel, shape)}
@@ -144,12 +151,20 @@ def phase_device() -> None:
     generated = sorted(csa_register_kernels() - {(CSA_MACRO_ROWS, True)})
     jobs = [lambda n=n: build_library(n) for n in names]
     jobs += [lambda r=r: register_library(*r) for r in generated]
+
+    def timed(job):
+        t = time.perf_counter()
+        return job(), time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        libs = [first] + list(pool.map(lambda job: job(), jobs))
+        built = list(pool.map(timed, jobs))
     log(f"device: built {names} and {len(generated)} more generated "
         f"csa_tree kernels (rows, compressors) {generated} in parallel in "
         f"{time.perf_counter() - t0:.3f} s")
+    log("device: each build's wall time in the parallel batch: "
+        + ", ".join(f"{lib.name} {secs:.3f} s" for lib, secs in built))
+    libs = [first] + [lib for lib, _ in built]
     for lib in libs:
         report = ptxas_report(lib.with_suffix(".log").read_text())
         check(bool(report), f"no ptxas report for {lib.name}")
@@ -551,34 +566,39 @@ def _csa_bound_ms(h: int, n: int, bh: int | None = None
 def phase_csa(wk) -> list[dict]:
     """The adder tree of the macro the compiler designs, on the qwen3-4b wk
     GEMM executed on the scenario specs' 64-row macro: every 64-row K chunk
-    of the (K, M*N) product stack through ``csa_tree_sum`` (rows route), the
+    of the (K, M*N) product stack through ``csa_tree_sum`` (rows route),
+    every 256-row K chunk (a 256-row macro's, the tall rows route), the
     whole-K stack through the tiled route, plus ragged and wrapping stacks;
-    each output held equal to the plain version, and both reductions to the
-    ``dcim_mac`` product."""
+    each output held equal to the plain version, and the three reductions
+    to the ``dcim_mac`` product."""
     import torch
 
     from repro_torch.core import scenario_specs
     from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
                                               csa_tree_ref, csa_tree_sum)
+    from repro_torch.kernels.csa_tree.kernel import rows_kernel
     from repro_torch.kernels.tiles import DEFAULT_TILES
 
     a, w, product = wk
-    rows = {s.h for s in scenario_specs().values()}
-    check(rows == {CSA_MACRO_ROWS},
-          f"scenario macros have {rows} rows, expected {CSA_MACRO_ROWS}")
-    macro_h = rows.pop()
+    heights = {s.h for s in scenario_specs().values()}
+    check(heights == {CSA_MACRO_ROWS},
+          f"scenario macros have {heights} rows, expected {CSA_MACRO_ROWS}")
     (m, k), n = a.shape, w.shape[1]
     # stack[k, m * N + n] = a[m, k] * w[k, n]: the products one macro column
-    # of K rows reduces; 64-row chunks are row slices of it
+    # of K rows reduces; a macro's K chunks are row slices of it
     stack = (a.t().to(torch.int32)[:, :, None]
              * w.to(torch.int32)[:, None, :]).reshape(k, m * n).contiguous()
-    chunks = [stack[c:c + macro_h] for c in range(0, k, macro_h)]
+    chunks = {h: [stack[c:c + h] for c in range(0, k, h)]
+              for h in (CSA_MACRO_ROWS, CSA_TALL_MACRO_ROWS)}
+    check(k % CSA_TALL_MACRO_ROWS == 0
+          and CSA_REG_ROWS < CSA_TALL_MACRO_ROWS <= CSA_MAX_ROWS,
+          "the 256-row K chunks must be whole stacks of the tall rows route")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     extremes = torch.tensor([-2 ** 31, 2 ** 31 - 1, -1, 0, 1],
                             dtype=torch.int32, device="cuda")
     check(max(h for h, _ in CSA_RAGGED) > CSA_MAX_ROWS
           and any(CSA_REG_ROWS < h <= CSA_MAX_ROWS for h, _ in CSA_RAGGED),
-          "the ragged stacks must reach the tiled route and the interpreter")
+          "the ragged stacks must reach the tiled route and the tall rows")
     ragged = {}
     for shape in CSA_RAGGED[:-1]:
         ragged["x".join(map(str, shape))] = torch.randint(
@@ -589,20 +609,21 @@ def phase_csa(wk) -> list[dict]:
         torch.randint(0, 5, shape, generator=g, device="cuda")]
 
     def launch_key(h: int) -> str:
-        return ("tiled" if h > CSA_MAX_ROWS
-                else "rows" if h <= CSA_REG_ROWS else "rows_interp")
+        return "tiled" if h > CSA_MAX_ROWS else rows_kernel(h)
 
     # -- the main path -------------------------------------------------------
     for key in csa_tree_sum.launches:
         csa_tree_sum.launches[key] = 0
-    outs = [csa_tree_sum(x) for x in chunks]
+    outs = {h: [csa_tree_sum(x) for x in xs] for h, xs in chunks.items()}
     whole = csa_tree_sum(stack)
     ragged_outs = {(name, comp): csa_tree_sum(x, use_compressors=comp)
                    for name, x in ragged.items() for comp in (True, False)}
     torch.cuda.synchronize()
     launches = dict(csa_tree_sum.launches)
     log(f"csa: launches on the main path {launches}")
-    expected = {"rows": len(chunks), "tiled": 1, "rows_interp": 0}
+    expected = {"rows": 0, "tiled": 1, "rows_tall": 0}
+    for h, xs in chunks.items():
+        expected[launch_key(h)] += len(xs)
     for x in ragged.values():
         expected[launch_key(x.shape[0])] += 2
     check(launches == expected,
@@ -610,12 +631,15 @@ def phase_csa(wk) -> list[dict]:
 
     # -- held against the plain version and the MAC product -----------------
     err = 0.0
-    for x, got in zip(chunks, outs):
-        check(torch.equal(got, csa_tree_ref(x)),
-              "csa: a K-chunk reduction differs from its plain version")
-    total = torch.stack(outs).sum(0, dtype=torch.int32).reshape(m, n)
-    check(torch.equal(total, product),
-          "csa: the 40 K-chunk sums differ from dcim_matmul_int(a, w)")
+    for h, xs in chunks.items():
+        for x, got in zip(xs, outs[h]):
+            check(torch.equal(got, csa_tree_ref(x)),
+                  f"csa: a {h}-row K-chunk reduction differs from its plain "
+                  f"version")
+        total = torch.stack(outs[h]).sum(0, dtype=torch.int32).reshape(m, n)
+        check(torch.equal(total, product),
+              f"csa: the {len(xs)} {h}-row K-chunk sums differ from "
+              f"dcim_matmul_int(a, w)")
     check(torch.equal(whole, csa_tree_ref(stack))
           and torch.equal(whole.reshape(m, n), product),
           "csa: the whole-K tiled reduction differs")
@@ -625,56 +649,69 @@ def phase_csa(wk) -> list[dict]:
         check(torch.equal(got, want),
               f"csa: {name} (compressors={comp}) differs from its plain "
               f"version")
-    log(f"csa: {len(chunks)} chunks of {macro_h}x{m * n} (rows route) and "
-        f"the {k}x{m * n} stack (tiled route) equal the plain version and "
-        f"sum to dcim_matmul_int(a, w) bit for bit; ragged and wrapping "
-        f"stacks equal, both compressor settings")
+    log(f"csa: {len(chunks[CSA_MACRO_ROWS])} chunks of {CSA_MACRO_ROWS}x"
+        f"{m * n} (rows route), {len(chunks[CSA_TALL_MACRO_ROWS])} chunks of "
+        f"{CSA_TALL_MACRO_ROWS}x{m * n} (tall rows route) and the {k}x"
+        f"{m * n} stack (tiled route) equal the plain version and sum to "
+        f"dcim_matmul_int(a, w) bit for bit; ragged and wrapping stacks "
+        f"equal, both compressor settings")
 
     # -- times ----------------------------------------------------------------
-    rows_ms = _time_ms(lambda: [csa_tree_sum(x) for x in chunks])
-    rows_plain = _time_ms(lambda: [csa_tree_ref(x) for x in chunks])
-    rows_lib = _time_ms(lambda: [torch.sum(x, 0, dtype=torch.int32)
-                                 for x in chunks])
-    rows_bound = _csa_bound_ms(macro_h, m * n)
-    tiled_ms = _time_ms(lambda: csa_tree_sum(stack), reps=10)
-    tiled_plain = _time_ms(lambda: csa_tree_ref(stack), reps=10)
-    tiled_lib = _time_ms(lambda: torch.sum(stack, 0, dtype=torch.int32),
-                         reps=10)
-    tiled_bound = _csa_bound_ms(k, m * n, DEFAULT_TILES["csa_tree"].bh)
-    rows_bound = (rows_bound[0] * len(chunks), rows_bound[1])
-    interp = [x for x in ragged.values() if launch_key(x.shape[0])
-              == "rows_interp"][0]
-    interp_ms = _time_ms(lambda: csa_tree_sum(interp))
-    interp_plain = _time_ms(lambda: csa_tree_ref(interp))
-    interp_lib = _time_ms(lambda: torch.sum(interp, 0, dtype=torch.int32))
-    interp_bound = _csa_bound_ms(*interp.shape)
-    for name, t, plain, lib, bound in (
-            ("rows", rows_ms, rows_plain, rows_lib, rows_bound),
-            ("tiled", tiled_ms, tiled_plain, tiled_lib, tiled_bound),
-            (f"rows_interp ({interp.shape[0]}x{interp.shape[1]})", interp_ms,
-             interp_plain, interp_lib, interp_bound)):
-        log(f"csa: csa_tree_{name}: kernel {t:.6f} ms, plain {plain:.6f} ms, "
-            f"torch.sum {lib:.6f} ms, bound {bound[0]:.6f} ms ({bound[1]})")
+    def timed(label, xs, bound, reps=20):
+        """Kernel, plain and torch.sum times of csa_tree_sum over the
+        stacks ``xs`` (one call each), beside the bound."""
+        row = dict(
+            label=label, bound=bound,
+            ms=_time_ms(lambda: [csa_tree_sum(x) for x in xs], reps),
+            plain_ms=_time_ms(lambda: [csa_tree_ref(x) for x in xs], reps),
+            library_ms=_time_ms(lambda: [torch.sum(x, 0, dtype=torch.int32)
+                                         for x in xs], reps))
+        log(f"csa: csa_tree_{label}: kernel {row['ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms, torch.sum {row['library_ms']:.6f} "
+            f"ms, bound {bound[0]:.6f} ms ({bound[1]})")
+        return row
+
+    def bound_of(h, n, count=1, bh=None):
+        ms, by = _csa_bound_ms(h, n, bh)
+        return ms * count, by
+
+    tall_small = ragged["300x1000"]
+    rows = {
+        "rows": timed(f"rows ({len(chunks[CSA_MACRO_ROWS])} chunks of "
+                      f"{CSA_MACRO_ROWS}x{m * n})", chunks[CSA_MACRO_ROWS],
+                      bound_of(CSA_MACRO_ROWS, m * n,
+                               len(chunks[CSA_MACRO_ROWS]))),
+        "tiled": timed(f"tiled ({k}x{m * n})", [stack],
+                       bound_of(k, m * n, 1, DEFAULT_TILES["csa_tree"].bh),
+                       reps=10),
+        "rows_tall": timed(
+            f"rows_tall ({len(chunks[CSA_TALL_MACRO_ROWS])} chunks of "
+            f"{CSA_TALL_MACRO_ROWS}x{m * n})", chunks[CSA_TALL_MACRO_ROWS],
+            bound_of(CSA_TALL_MACRO_ROWS, m * n,
+                     len(chunks[CSA_TALL_MACRO_ROWS]))),
+        "rows_tall_small": timed("rows_tall (300x1000)", [tall_small],
+                                 bound_of(*tall_small.shape)),
+    }
+    # the tall rows route's entry sums its two timed shapes
+    tall = {key: rows["rows_tall"][key] + rows["rows_tall_small"][key]
+            for key in ("ms", "plain_ms", "library_ms")}
+    tall["bound"] = (rows["rows_tall"]["bound"][0]
+                     + rows["rows_tall_small"]["bound"][0],
+                     rows["rows_tall"]["bound"][1])
     src = "src/repro_torch/csrc/csa_tree_reg.cu.in"
     tpu = "src/repro/kernels/csa_tree/kernel.py"
-    return [
-        {"name": "csa_tree_rows", "route": "cuda", "source": src,
-         "replaces": f"{tpu}:95", "launches": launches["rows"],
-         "max_abs_err": err, "ms": rows_ms, "plain_ms": rows_plain,
-         "bound_ms": rows_bound[0], "bound_by": rows_bound[1],
-         "library_ms": rows_lib},
-        {"name": "csa_tree_tiled", "route": "cuda", "source": src,
-         "replaces": f"{tpu}:158", "launches": launches["tiled"],
-         "max_abs_err": err, "ms": tiled_ms, "plain_ms": tiled_plain,
-         "bound_ms": tiled_bound[0], "bound_by": tiled_bound[1],
-         "library_ms": tiled_lib},
-        {"name": "csa_tree_rows_interp", "route": "cuda",
-         "source": "src/repro_torch/csrc/csa_tree.cu",
-         "replaces": f"{tpu}:95", "launches": launches["rows_interp"],
-         "max_abs_err": err, "ms": interp_ms, "plain_ms": interp_plain,
-         "bound_ms": interp_bound[0], "bound_by": interp_bound[1],
-         "library_ms": interp_lib},
-    ]
+    out = []
+    for name, key, row, line in (
+            ("csa_tree_rows", "rows", rows["rows"], 95),
+            ("csa_tree_tiled", "tiled", rows["tiled"], 158),
+            ("csa_tree_rows_tall", "rows_tall", tall, 95)):
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"{tpu}:{line}", "launches": launches[key],
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+            "library_ms": row["library_ms"]})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -694,20 +731,26 @@ def _ssm_bound_ms(t: int, d: int) -> tuple[float, str]:
 def phase_ssm() -> list[dict]:
     """One zamba2-1.2b Mamba2 layer's SSD state, flattened (64 heads x
     state 64 x head_dim 64 = 262,144 columns, batch 1), scanned over 1024
-    steps, plus the tuned shape classes and a ragged shape: every route
-    within the JAX package's tolerance of the sequential plain version, the
-    pipelined depths equal to the grid kernel bit for bit."""
+    steps, plus the tuned shape classes and a ragged shape: every depth
+    equal bit for bit to the chunked plain version with the shape's chunk
+    split, and within the JAX package's tolerance of the sequential plain
+    version."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import TileConfig
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+    from repro_torch.kernels.ssm_scan import (ssm_chunks, ssm_scan,
+                                              ssm_scan_chunked_ref,
+                                              ssm_scan_ref)
 
     cfg = get_config("zamba2-1.2b")
     heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
     width = heads * cfg.ssm.state * cfg.ssm.head_dim
     check(width == 262_144, f"zamba2 SSD state width {width}")
     shapes = [(1024, width), (1024, 256), (4096, 256), (1000, 300)]
+    check(ssm_chunks(1024, width)[0] == 1
+          and all(ssm_chunks(*shape)[0] > 1 for shape in shapes[1:]),
+          "the zamba2 state must run one pass and the narrow states chunks")
     g = torch.Generator(device="cuda").manual_seed(SEED)
     inputs = {}
     for t, d in shapes:
@@ -717,43 +760,51 @@ def phase_ssm() -> list[dict]:
             0.8 + 0.2 * torch.rand((t, d), generator=g, device="cuda"),
             torch.randn((t, d), generator=g, device="cuda"),
             torch.randn((d,), generator=g, device="cuda"))
-    grid = TileConfig(depth=1)
-    depth4 = TileConfig(depth=4)
+    tiles = {depth: TileConfig(depth=depth) for depth in (1, 2, 3, 4)}
 
     # -- the main path -------------------------------------------------------
     for key in ssm_scan.launches:
         ssm_scan.launches[key] = 0
     outs = {}
     for shape, (a, b, h0) in inputs.items():
-        outs[shape] = {1: ssm_scan(a, b, h0, tile_config=grid),
+        outs[shape] = {1: ssm_scan(a, b, h0, tile_config=tiles[1]),
                        2: ssm_scan(a, b, h0),
-                       4: ssm_scan(a, b, h0, tile_config=depth4)}
+                       4: ssm_scan(a, b, h0, tile_config=tiles[4])}
     torch.cuda.synchronize()
     launches = dict(ssm_scan.launches)
     log(f"ssm: launches on the main path {launches}")
-    check(launches == {"grid": len(shapes), "pipelined": 2 * len(shapes)},
-          f"ssm launch counts {launches}")
+    # a chunked call launches the summary kernel, then the states kernel
+    kernels = sum(2 if ssm_chunks(*shape)[0] > 1 else 1 for shape in shapes)
+    check(launches == {"grid": kernels, "pipelined": 2 * kernels},
+          f"ssm launch counts {launches}, expected {kernels} kernels per "
+          f"depth")
 
-    # -- held against the sequential plain version ---------------------------
+    # -- held against the chunked and the sequential plain versions ---------
     err = 0.0
     for (t, d), (a, b, h0) in inputs.items():
+        outs[(t, d)][3] = ssm_scan(a, b, h0, tile_config=tiles[3])
+        chunks, rows = ssm_chunks(t, d)
+        want_cs, want_cf = ssm_scan_chunked_ref(a, b, h0, chunks)
         want_s, want_f = ssm_scan_ref(a, b, h0)
         tol = 2e-5 if t % 32 == 0 and d % 32 == 0 else 3e-5
-        s1, f1 = outs[(t, d)][1]
-        for depth, (s, f) in outs[(t, d)].items():
+        for depth, (s, f) in sorted(outs[(t, d)].items()):
             check(s.shape == (t, d) and f.shape == (d,)
                   and bool(torch.isfinite(s).all()),
                   f"ssm {t}x{d} depth {depth}: bad output")
-            check(torch.equal(s, s1) and torch.equal(f, f1),
-                  f"ssm {t}x{d}: depth {depth} differs from the grid kernel")
+            check(torch.equal(s, want_cs) and torch.equal(f, want_cf),
+                  f"ssm {t}x{d} depth {depth}: differs from the chunked "
+                  f"plain version ({chunks} chunks of {rows} rows)")
             for got, want in ((s, want_s), (f, want_f)):
                 diff = (got - want).abs()
                 err = max(err, diff.max().item())
                 check(bool((diff <= tol + tol * want.abs()).all()),
                       f"ssm {t}x{d} depth {depth}: outside rtol/atol {tol} "
-                      f"(max |diff| {diff.max().item()})")
-        log(f"ssm: {t}x{d}: grid, depth 2 and depth 4 equal bit for bit; "
-            f"max |diff| to the sequential plain version "
+                      f"of the sequential plain version (max |diff| "
+                      f"{diff.max().item()})")
+        s1, f1 = outs[(t, d)][1]
+        log(f"ssm: {t}x{d}: S = {chunks} chunks of L = {rows} rows; depths "
+            f"1-4 equal the chunked plain version bit for bit; max |diff| "
+            f"to the sequential plain version "
             f"{(s1 - want_s).abs().max().item():.3e} (states), "
             f"{(f1 - want_f).abs().max().item():.3e} (final), tolerance "
             f"rtol/atol {tol}")
@@ -761,17 +812,16 @@ def phase_ssm() -> list[dict]:
     # -- times ----------------------------------------------------------------
     rows = []
     for (t, d), (a, b, h0) in inputs.items():
-        rows.append(dict(
-            shape=(t, d),
-            grid=_time_ms(lambda: ssm_scan(a, b, h0, tile_config=grid)),
-            pipelined=_time_ms(lambda: ssm_scan(a, b, h0)),
-            plain=_time_ms(lambda: ssm_scan_ref(a, b, h0), reps=3),
-            bound=_ssm_bound_ms(t, d)))
-    for r in rows:
-        log(f"ssm: {r['shape'][0]}x{r['shape'][1]}: grid {r['grid']:.6f} ms, "
-            f"pipelined (depth 2) {r['pipelined']:.6f} ms, plain "
-            f"{r['plain']:.6f} ms, bound {r['bound'][0]:.6f} ms "
-            f"({r['bound'][1]})")
+        chunks = ssm_chunks(t, d)[0]
+        row = dict(shape=(t, d), bound=_ssm_bound_ms(t, d), plain=_time_ms(
+            lambda: ssm_scan_chunked_ref(a, b, h0, chunks), reps=3))
+        for depth, tc in tiles.items():
+            row[depth] = _time_ms(lambda: ssm_scan(a, b, h0, tile_config=tc))
+        rows.append(row)
+        log(f"ssm: {t}x{d} (S = {chunks}): depth 1 {row[1]:.6f} ms, depth 2 "
+            f"{row[2]:.6f} ms, depth 3 {row[3]:.6f} ms, depth 4 "
+            f"{row[4]:.6f} ms, plain {row['plain']:.6f} ms, bound "
+            f"{row['bound'][0]:.6f} ms ({row['bound'][1]})")
     bound = sum(r["bound"][0] for r in rows)
     by = "bytes" if all(r["bound"][1] == "bytes" for r in rows) \
         else "operations"
@@ -783,12 +833,12 @@ def phase_ssm() -> list[dict]:
     return [
         {"name": "ssm_scan_grid", "route": "cuda", "source": src,
          "replaces": f"{tpu}:74", "launches": launches["grid"],
-         "max_abs_err": err, "ms": sum(r["grid"] for r in rows),
+         "max_abs_err": err, "ms": sum(r[1] for r in rows),
          "plain_ms": plain, "bound_ms": bound, "bound_by": by,
          "library_ms": None},
         {"name": "ssm_scan_pipelined", "route": "cuda", "source": src,
          "replaces": f"{tpu}:183", "launches": launches["pipelined"],
-         "max_abs_err": err, "ms": sum(r["pipelined"] for r in rows),
+         "max_abs_err": err, "ms": sum(r[2] for r in rows),
          "plain_ms": plain, "bound_ms": bound, "bound_by": by,
          "library_ms": None},
     ]

@@ -7,11 +7,10 @@ version.
   csa_tree  the Fig. 4 carry-save adder tree, executing the synthesized
             reduction schedule: straight-line register kernels generated
             per row count from ``csrc/csa_tree_reg.cu.in`` (whole rows up
-            to 128, and tiled H), and a shared-memory interpreter for
-            129..512 whole rows in ``csrc/csa_tree.cu``.
+            to 512, and tiled H).
   ssm_scan  the chunked diagonal linear recurrence (SSM decode primitive),
-            a plain-load and a ``cp.async``-ring kernel.  CUDA C++ in
-            ``csrc/ssm_scan.cu``.
+            a chunk-parallel scan with a plain-load and a ``cp.async``-ring
+            variant.  CUDA C++ in ``csrc/ssm_scan.cu``.
 
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors; it never falls back from one to the other.  ``tile_config``

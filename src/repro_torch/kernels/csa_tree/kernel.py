@@ -1,22 +1,19 @@
 """ctypes binding of the CUDA ``csa_tree`` kernels.
 
-Two kernels execute the adder-tree schedule on the card:
-
-- the register kernel, generated per row count R <= ``CSA_REG_ROWS`` from
-  ``build_schedule(R, use_compressors)`` (:mod:`.codegen`, template
-  ``csrc/csa_tree_reg.cu.in``): the rows route for H <= ``CSA_REG_ROWS``
-  (R = H) and the tiled route (R = bh, H in tiles);
-- the shared-memory interpreter of ``csrc/csa_tree.cu``: the rows route for
-  ``CSA_REG_ROWS`` < H <= ``CSA_MAX_ROWS``, whose lanes do not fit in
-  registers.
+One kernel executes the adder-tree schedule on the card: the register
+kernel, generated per row count R <= ``CSA_MAX_ROWS`` from
+``build_schedule(R, use_compressors)`` (:mod:`.codegen`, template
+``csrc/csa_tree_reg.cu.in``).  The rows route runs it with R = H on a whole
+stack of at most ``CSA_MAX_ROWS`` rows, the tiled route with R = bh over H
+tiles.
 
 Each source is compiled for ``sm_90a`` at first use (:mod:`repro_torch.
 kernels.build`) and loaded once per process.  Each launch function checks
 its operands, allocates the output with ``torch.empty`` on the operands'
 device, launches on torch's current stream without synchronising, and
 raises if the build or the launch failed.  Where it launches a kernel it
-adds one to :data:`LAUNCHES` under that kernel's key (``rows``,
-``rows_interp`` or ``tiled``); ``csa_tree_sum.launches`` is that dict.
+adds one to :data:`LAUNCHES` under that launch's key (``rows``,
+``rows_tall`` or ``tiled``); ``csa_tree_sum.launches`` is that dict.
 They take CUDA tensors only: the wrapper in :mod:`repro_torch.kernels.
 csa_tree.ops` routes CPU tensors to the plain versions.
 """
@@ -29,38 +26,18 @@ from pathlib import Path
 
 import torch
 
-from ..build import build_library, build_source
-from ..tiles import CSA_REG_ROWS, TileConfig, feasible
+from ..build import build_source
+from ..tiles import CSA_MAX_ROWS, CSA_REG_ROWS, TileConfig, feasible
 from . import codegen
-from .ref import build_schedule
 
-#: Row budget of the whole-rows route, the JAX package's bound.  Above
-#: ``CSA_REG_ROWS`` rows the interpreter stages all H rows of its block's
-#: columns in shared memory: 512 rows x ``INTERP_THREADS`` columns x 4 B =
-#: 128 KiB of the 227 KB a block may use.
-CSA_MAX_ROWS = 512
-
-#: Columns (threads) of an interpreter block, whatever ``bn`` the caller
-#: gives: its shared memory grows with H x bn.
-INTERP_THREADS = 64
-
-#: Kernel launches, by kernel: ``rows`` the register kernel on a whole
-#: stack, ``tiled`` the register kernel over H tiles, ``rows_interp`` the
-#: shared-memory interpreter.  Added to where each kernel is launched.
-LAUNCHES = {"rows": 0, "tiled": 0, "rows_interp": 0}
+#: Kernel launches, by launch: ``rows`` the register kernel on a whole
+#: stack of at most ``CSA_REG_ROWS`` rows, ``rows_tall`` on a whole stack
+#: of ``CSA_REG_ROWS`` + 1 .. ``CSA_MAX_ROWS`` rows, ``tiled`` over H
+#: tiles.  Added to where each kernel is launched.
+LAUNCHES = {"rows": 0, "tiled": 0, "rows_tall": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-
-
-@functools.cache
-def _interp_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library("csa_tree")))
-    lib.csa_tree_rows.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-    lib.csa_tree_rows.restype = _I
-    lib.csa_tree_error_string.argtypes = [_I]
-    lib.csa_tree_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def register_library(rows: int, use_compressors: bool) -> Path:
@@ -78,16 +55,6 @@ def _reg_lib(rows: int, use_compressors: bool) -> ctypes.CDLL:
     lib.csa_tree_reg_error_string.argtypes = [_I]
     lib.csa_tree_reg_error_string.restype = ctypes.c_char_p
     return lib
-
-
-@functools.cache
-def _program(rows: int, use_compressors: bool, device: torch.device
-             ) -> tuple[torch.Tensor, int, int]:
-    """The interpreter's ``rows``-row op program on ``device``: (ops,
-    n_ops, result)."""
-    sched = build_schedule(rows, use_compressors)
-    ops = torch.as_tensor(sched.ops, dtype=torch.int32, device=device)
-    return ops.contiguous(), len(sched.ops), sched.result
 
 
 def _check(err: int, name: str, error_string) -> None:
@@ -125,10 +92,10 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def rows_kernel(h: int) -> str:
-    """The kernel the rows route launches on an ``h``-row stack: ``rows``
-    (the generated register kernel) up to ``CSA_REG_ROWS`` rows,
-    ``rows_interp`` (the shared-memory interpreter) above."""
-    return "rows" if h <= CSA_REG_ROWS else "rows_interp"
+    """The launch key of the rows route on an ``h``-row stack: ``rows`` up
+    to ``CSA_REG_ROWS`` rows, ``rows_tall`` above (the same generated
+    kernel, R = h)."""
+    return "rows" if h <= CSA_REG_ROWS else "rows_tall"
 
 
 def _launch_reg(operands: torch.Tensor, rows: int, use_compressors: bool,
@@ -149,29 +116,16 @@ def csa_tree_rows_cuda(operands: torch.Tensor, *, use_compressors: bool = True,
                        bn: int = 256) -> torch.Tensor:
     """(H, N) int32 -> (N,) int32 column sums on the card by the H-row
     schedule: the generated H-row register kernel in blocks of ``bn``
-    columns for H <= ``CSA_REG_ROWS``, the shared-memory interpreter (blocks
-    of ``INTERP_THREADS`` columns) up to ``CSA_MAX_ROWS``.  Taller stacks go
-    through :func:`csa_tree_tiled_cuda` (``csa_tree_sum`` routes there)."""
+    columns, for H <= ``CSA_MAX_ROWS``.  Taller stacks go through
+    :func:`csa_tree_tiled_cuda` (``csa_tree_sum`` routes there)."""
     if operands.shape[0] > CSA_MAX_ROWS:
         raise ValueError(
             f"csa_tree_rows_cuda runs the whole H-row schedule at once; "
             f"H={operands.shape[0]} exceeds the H<={CSA_MAX_ROWS} limit — "
             f"use csa_tree_tiled_cuda (csa_tree_sum routes automatically)")
-    h, n = _check_operands(operands)
+    h, _ = _check_operands(operands)
     _check_block(min(h, CSA_REG_ROWS), bn)
-    if rows_kernel(h) == "rows":
-        return _launch_reg(operands, h, use_compressors, bn, "rows")
-    ops, n_ops, result = _program(h, use_compressors, operands.device)
-    out = torch.empty((n,), dtype=torch.int32, device=operands.device)
-    if n:
-        lib = _interp_lib()
-        with torch.cuda.device(operands.device):
-            _check(lib.csa_tree_rows(operands.data_ptr(), out.data_ptr(),
-                                     ops.data_ptr(), n_ops, result, h, n,
-                                     INTERP_THREADS, _stream(operands)),
-                   "csa_tree_rows", lib.csa_tree_error_string)
-        LAUNCHES["rows_interp"] += 1
-    return out
+    return _launch_reg(operands, h, use_compressors, bn, rows_kernel(h))
 
 
 def csa_tree_tiled_cuda(operands: torch.Tensor, *,

@@ -11,9 +11,9 @@ autotuner's winner).  Every call goes through :func:`~repro_torch.kernels.
 instrument.dispatch_span`, whose span also carries the kernel the route
 runs (tag ``kernel``).  ``csa_tree_sum.launches`` is the count the launch
 functions keep (:data:`~repro_torch.kernels.csa_tree.kernel.LAUNCHES`):
-``rows`` and ``tiled`` the launches of the generated register kernels,
-``rows_interp`` those of the shared-memory interpreter (the rows route
-above ``CSA_REG_ROWS`` rows).
+the launches of the generated register kernels: ``rows`` and
+``rows_tall`` on the rows route (up to ``CSA_REG_ROWS`` rows, and above),
+``tiled`` on the tiled route.
 """
 
 from __future__ import annotations

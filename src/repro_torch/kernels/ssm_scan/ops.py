@@ -8,8 +8,10 @@ the sequential plain version.  ``tile_config`` as in the JAX package's
 :class:`~repro_torch.kernels.tiles.TileConfig` with ``depth == 1`` the
 plain-load ``grid`` kernel and ``>= 2`` the ``pipelined`` one, ``"auto"``
 the autotuner's winner for this shape class.  Every call goes through
-:func:`~repro_torch.kernels.instrument.dispatch_span`;
-``ssm_scan.launches`` counts the kernel launches per route.
+:func:`~repro_torch.kernels.instrument.dispatch_span`.
+``ssm_scan.launches`` is the count the launch function keeps
+(:data:`~repro_torch.kernels.ssm_scan.kernel.LAUNCHES`): every kernel
+launched, per route, two for a chunked call and one for S = 1.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from ..autotune import select_tile
 from ..instrument import dispatch_span
 from ..tiles import TileConfig
-from .kernel import ssm_scan_cuda
+from .kernel import LAUNCHES, ssm_scan_cuda
 from .ref import ssm_scan_ref
 
 
@@ -35,10 +37,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, *,
     with dispatch_span("ssm_scan", shape, tc, source, route, a.device):
         if not a.is_cuda:
             return ssm_scan_ref(a, b, h0)
-        out = ssm_scan_cuda(a, b, h0, bt=tc.bt, bd=tc.bd, depth=tc.depth)
-        if shape[0] and shape[1]:
-            ssm_scan.launches[route] += 1
-        return out
+        return ssm_scan_cuda(a, b, h0, bt=tc.bt, bd=tc.bd, depth=tc.depth)
 
 
-ssm_scan.launches = {"grid": 0, "pipelined": 0}
+ssm_scan.launches = LAUNCHES

@@ -19,8 +19,8 @@ TPU's 12 MiB VMEM budget), and a dimension that maps onto threads is a
 multiple of the warp (:data:`WARP` in place of the TPU's 128-lane and
 8-sublane alignment).  The working set of a candidate is the port kernel's
 own shared-memory use (:func:`smem_bytes`).  The ``csa_tree`` register
-kernel uses none: its tile of bh rows lives in registers, so bh is capped
-by :data:`CSA_REG_ROWS` and bn by the kernel's launch bound
+kernel uses none: its tile of bh rows lives in registers; bh is capped by
+:data:`CSA_REG_ROWS` and bn by the kernel's launch bound
 :data:`CSA_THREADS`.
 """
 
@@ -45,10 +45,15 @@ MAX_THREADS = 1024
 #: plain-load kernel, 2..4 the ``cp.async`` ring).
 SSM_DEPTHS = (1, 2, 3, 4)
 
-#: Rows the ``csa_tree`` register kernel holds in registers, one lane a
-#: row.  Its 128-row kernels take 85 (compressors) and 99 (full adders
-#: only) registers on sm_90a and spill nothing; a 256-row unroll risks
-#: spilling past Hopper's 255 a thread.
+#: Rows of the ``csa_tree`` whole-rows route, the JAX package's bound: the
+#: register kernel generated for H rows runs every stack of at most this
+#: many rows whole.
+CSA_MAX_ROWS = 512
+
+#: Tallest tile of the ``csa_tree`` tiled route (``bh``): the register
+#: kernel generated for bh rows walks H in bh-row tiles.  Taller tiles
+#: build as well (the rows route runs up to :data:`CSA_MAX_ROWS`), but no
+#: gain from one was measured, so the autotuner's space stops here.
 CSA_REG_ROWS = 128
 
 #: Threads a block of the ``csa_tree`` register kernel may have (its

@@ -11,9 +11,10 @@ program the CUDA kernels run (``build_schedule``), executed in torch by
 ``reduce_levels``, gives the same lanes as the JAX package's
 ``_reduce_level`` at every level.  ``TestCodegen`` holds the straight-line
 source generated for the register kernel to that program: its statements,
-read back, are the program op for op for every row count the kernel
-takes, and a numpy ``uint32`` evaluator of those statements equals the
-JAX package's kernels.  The CUDA kernels themselves are held against the
+read back, are the program op for op (in stream order: ops that share a
+slot keep their order) for every tile height of the tiled route and the
+tall whole-stack heights, and a numpy ``uint32`` evaluator of those
+statements equals the JAX package's kernels.  The CUDA kernels themselves are held against the
 plain version on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
@@ -204,25 +205,120 @@ def mixed_stack(h, n, seed):
     return x
 
 
+def slot_sequences(ops):
+    """For each slot, the ops that read or write it, in program order."""
+    out = {}
+    for op in ops.tolist():
+        kind, x, y, z = op
+        for slot in (x, y, z) if kind == FA and z != ZERO else (x, y):
+            out.setdefault(slot, []).append(tuple(op))
+    return out
+
+
+def tree_lanes(text):
+    """The most lanes a generated body holds at once: a lane is live from
+    the first statement that reads it to the last (the result to the
+    return)."""
+    reads = []
+    for line in text.splitlines():
+        if m := codegen._FA.match(line):
+            reads.append([int(v) for v in m.groups() if v])
+        elif m := (codegen._ADD.match(line) or codegen._RESULT.match(line)):
+            reads.append([int(v) for v in m.groups()])
+    first, last = {}, {}
+    for i, slots in enumerate(reads):
+        for slot in slots:
+            first.setdefault(slot, i)
+            last[slot] = i
+    return max(sum(first[s] <= i <= last[s] for s in first)
+               for i in range(len(reads)))
+
+
+TALL = [129, 200, 256, 300, 511, 512]
+
+
 class TestCodegen:
     """The register kernel's generated source against the schedule and the
     JAX package's kernels."""
 
-    @pytest.mark.parametrize("rows", range(1, CSA_REG_ROWS + 1))
+    @pytest.mark.parametrize("rows", list(range(1, CSA_REG_ROWS + 1)) + TALL)
     @pytest.mark.parametrize("use_compressors", [True, False])
     def test_statements_are_the_schedule(self, rows, use_compressors):
+        """The statements are the schedule's ops, every row loaded once, in
+        order, before its first reader: op for op in schedule order where
+        the window is the whole stack, else each slot's in schedule
+        order."""
         text = codegen.source(rows, use_compressors)
         loads, ops, result = codegen.read_back(text)
         sched = build_schedule(rows, use_compressors)
         assert loads == list(range(rows))
-        np.testing.assert_array_equal(ops, sched.ops)
+        if codegen.window(rows, use_compressors) == rows:
+            np.testing.assert_array_equal(ops, sched.ops)
+        assert len(ops) == len(sched.ops)
+        assert slot_sequences(ops) == slot_sequences(sched.ops)
         assert result == sched.result
         assert f"constexpr int kRows = {rows};" in text
         assert "@" not in text
 
+    @pytest.mark.parametrize("rows", [129, 256, 300, 400, CSA_MAX_ROWS])
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_window_is_the_largest_that_fits(self, rows, use_compressors):
+        """The body holds at most ``TREE_LANES`` lanes, in the largest
+        window that does; the schedule's own level order at 512 rows would
+        hold more lanes than a thread has registers."""
+        w = codegen.window(rows, use_compressors)
+        assert tree_lanes(codegen.source(rows, use_compressors)) \
+            <= codegen.TREE_LANES
+        sched = build_schedule(rows, use_compressors)
+
+        def lanes(window):
+            return codegen.live_lanes(sched, codegen.window_order(sched,
+                                                                  window))
+        assert lanes(w) == tree_lanes(codegen.source(rows, use_compressors))
+        for larger in (rows, *codegen.WINDOWS):
+            if w < larger <= rows:
+                assert lanes(larger) > codegen.TREE_LANES
+        if rows == CSA_MAX_ROWS:
+            assert lanes(rows) > 255
+
+    @pytest.mark.parametrize("rows", [1, 2, 64, 77, CSA_REG_ROWS])
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_tiles_run_in_schedule_order(self, rows, use_compressors):
+        """Up to ``CSA_REG_ROWS`` rows the window is the whole stack: every
+        row loaded first, then the ops in the schedule's own order."""
+        assert codegen.window(rows, use_compressors) == rows
+        body = codegen.body(rows, use_compressors)
+        lines = body.splitlines()
+        assert all(codegen._LOAD.match(line) for line in lines[:rows])
+        _, ops, _ = codegen.read_back(body)
+        np.testing.assert_array_equal(
+            ops, build_schedule(rows, use_compressors).ops)
+
+    def test_read_back_refuses_a_read_before_its_load(self):
+        body = codegen.body(8, True)
+        load7 = "  uint32_t l7 = row<kRagged>(p, 7, n, rows_left);\n"
+        assert body.count(load7) == 1
+        moved = body.replace(load7, "").replace("  return",
+                                                 load7 + "  return")
+        with pytest.raises(ValueError, match="before their rows"):
+            codegen.read_back(moved)
+
     @pytest.mark.parametrize("rows", [1, 2, 3, 5, 64, 77, 128])
     @pytest.mark.parametrize("use_compressors", [True, False])
     def test_evaluator_equals_whole_rows_pallas(self, rows, use_compressors):
+        x = mixed_stack(rows, 67, seed=rows)
+        want = np.asarray(csa_tree_pallas(jnp.asarray(x),
+                                          use_compressors=use_compressors,
+                                          interpret=True))
+        got = run_generated(codegen.source(rows, use_compressors), x)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, wrapped_sum(x))
+
+    @pytest.mark.parametrize("rows", TALL)
+    @pytest.mark.parametrize("use_compressors", [True, False])
+    def test_evaluator_equals_tall_whole_rows_pallas(self, rows,
+                                                     use_compressors):
+        """The tall kernels the rows route runs above ``CSA_REG_ROWS``."""
         x = mixed_stack(rows, 67, seed=rows)
         want = np.asarray(csa_tree_pallas(jnp.asarray(x),
                                           use_compressors=use_compressors,
@@ -241,7 +337,7 @@ class TestCodegen:
         got = run_generated(codegen.source(bh, use_compressors), x)
         np.testing.assert_array_equal(got, want)
 
-    @pytest.mark.parametrize("rows", [0, CSA_REG_ROWS + 1])
+    @pytest.mark.parametrize("rows", [0, CSA_MAX_ROWS + 1])
     def test_rows_outside_registers_raise(self, rows):
         with pytest.raises(ValueError, match="registers"):
             codegen.source(rows)
@@ -313,11 +409,11 @@ class TestEntryPoint:
 
     def test_launches_are_the_launch_functions_count(self):
         assert csa_tree_sum.launches is csa_kernel.LAUNCHES
-        assert set(csa_tree_sum.launches) == {"rows", "tiled", "rows_interp"}
+        assert set(csa_tree_sum.launches) == {"rows", "tiled", "rows_tall"}
 
     @pytest.mark.parametrize("h,kernel", [
-        (1, "rows"), (CSA_REG_ROWS, "rows"), (CSA_REG_ROWS + 1, "rows_interp"),
-        (CSA_MAX_ROWS, "rows_interp")])
+        (1, "rows"), (CSA_REG_ROWS, "rows"), (CSA_REG_ROWS + 1, "rows_tall"),
+        (CSA_MAX_ROWS, "rows_tall")])
     def test_rows_route_kernel(self, h, kernel):
         assert csa_kernel.rows_kernel(h) == kernel
 

@@ -12,9 +12,9 @@ only torch:
 Tolerances: none for ``dcim_mac`` and ``csa_tree`` (int32, float32 and
 bfloat16 outputs must equal the plain version's bits) and for the
 compiler (its arrays must equal the CPU's bits).  ``ssm_scan`` is a float
-scan and is held within the JAX package's rtol/atol of 2e-5 (3e-5 on
-ragged shapes) of the sequential plain version; its depths must equal one
-another bit for bit.
+scan: it must equal its chunked plain version bit for bit at every tile and
+depth, and stay within the JAX package's rtol/atol of 2e-5 (3e-5 on ragged
+shapes) of the sequential plain version.
 """
 
 import numpy as np
@@ -33,7 +33,8 @@ from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
                                           csa_tree_sum, csa_tree_tiled_cuda)
 from repro_torch.kernels.csa_tree.kernel import register_library
 from repro_torch.kernels.dcim_mac import dcim_matmul, dcim_matmul_int, ref
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import (ssm_chunks, ssm_scan,
+                                          ssm_scan_chunked_ref, ssm_scan_ref)
 from repro_torch.obs.metrics import get_registry
 
 pytestmark = pytest.mark.cuda
@@ -117,7 +118,7 @@ def test_compiler_device_path_equals_cpu(cuda_device):
 
 
 # csa_tree: one row, ragged columns, the macro's 64 rows, past a 128-row
-# tile (the interpreter), the whole-rows limit, and past it
+# tile (the tall register kernel), the whole-rows limit, and past it
 CSA_SHAPES = [(1, 5), (2, 33), (7, 100), (64, 1000), (130, 257),
               (CSA_MAX_ROWS, 64), (600, 300)]
 
@@ -139,7 +140,7 @@ def test_csa_tree_kernel_equals_plain_version(cuda_device, h, n,
                                               use_compressors, extremes):
     x = csa_stack(h, n, seed=h * 7 + n, extremes=extremes)
     key = ("tiled" if h > CSA_MAX_ROWS
-           else "rows" if h <= CSA_REG_ROWS else "rows_interp")
+           else "rows" if h <= CSA_REG_ROWS else "rows_tall")
     before = dict(csa_tree_sum.launches)
     got = csa_tree_sum(x, use_compressors=use_compressors)
     assert csa_tree_sum.launches[key] == before[key] + 1
@@ -183,18 +184,22 @@ def test_csa_tree_tiled_ragged_last_tile(cuda_device, bh, use_compressors):
         assert torch.equal(got, csa_tree_ref(x))
 
 
+@pytest.mark.parametrize("h", [129, 256, 300, CSA_MAX_ROWS])
 @pytest.mark.parametrize("use_compressors", [True, False])
-def test_csa_tree_interpreter_at_300_rows(cuda_device, use_compressors):
-    x = csa_stack(300, 1000, seed=300, extremes=True)
-    before = dict(csa_tree_sum.launches)
-    got = csa_tree_sum(x, use_compressors=use_compressors)
-    assert csa_tree_sum.launches == {
-        **before, "rows_interp": before["rows_interp"] + 1}
-    assert torch.equal(got, csa_tree_ref(x))
+def test_csa_tree_tall_register_kernel(cuda_device, h, use_compressors):
+    """The generated h-row register kernel on whole stacks taller than a
+    tile (the rows route's ``rows_tall`` launches)."""
+    for n, extremes in ((1000, True), (65_536 + 5, False)):
+        x = csa_stack(h, n, seed=h + n, extremes=extremes)
+        before = dict(csa_tree_sum.launches)
+        got = csa_tree_sum(x, use_compressors=use_compressors)
+        assert csa_tree_sum.launches == {
+            **before, "rows_tall": before["rows_tall"] + 1}
+        assert torch.equal(got, csa_tree_ref(x))
 
 
 @pytest.mark.parametrize("h,route,key", [(64, "rows", "rows"),
-                                          (300, "rows", "rows_interp"),
+                                          (300, "rows", "rows_tall"),
                                           (300, "tiled", "tiled")])
 def test_csa_tree_launch_functions_count_their_kernel(cuda_device, h, route,
                                                       key):
@@ -208,10 +213,11 @@ def test_csa_tree_launch_functions_count_their_kernel(cuda_device, h, route,
     assert torch.equal(got, csa_tree_ref(x))
 
 
+@pytest.mark.parametrize("rows", [CSA_REG_ROWS, 129, 256, 300, CSA_MAX_ROWS])
 @pytest.mark.parametrize("use_compressors", [True, False])
-def test_csa_tree_register_kernel_does_not_spill(cuda_device,
+def test_csa_tree_register_kernel_does_not_spill(cuda_device, rows,
                                                  use_compressors):
-    lib = register_library(CSA_REG_ROWS, use_compressors)
+    lib = register_library(rows, use_compressors)
     report = ptxas_report(lib.with_suffix(".log").read_text())
     assert report
     for usage in report.values():
@@ -246,10 +252,12 @@ def test_ssm_scan_depths_equal_and_close_to_plain(cuda_device, t, d):
     outs = {}
     for depth in (1, 2, 3, 4):
         route = "pipelined" if depth >= 2 else "grid"
-        before = ssm_scan.launches[route]
+        before = dict(ssm_scan.launches)
         outs[depth] = ssm_scan(a, b, h0, tile_config=TileConfig(
             bt=32, bd=128, depth=depth))
-        assert ssm_scan.launches[route] == before + 1
+        # the summary launch of a chunked call, then the states launch
+        kernels = 2 if ssm_chunks(t, d)[0] > 1 else 1
+        assert ssm_scan.launches == {**before, route: before[route] + kernels}
         s, f = outs[depth]
         torch.testing.assert_close(s, want_s, rtol=tol, atol=tol)
         torch.testing.assert_close(f, want_f, rtol=tol, atol=tol)
@@ -269,6 +277,18 @@ def test_ssm_scan_tiles_equal(cuda_device, tc):
                                                      depth=1))
     got = ssm_scan(a, b, h0, tile_config=tc)
     assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+
+
+@pytest.mark.parametrize("t,d", SSM_SHAPES + [(4096, 256)])
+def test_ssm_scan_equals_chunked_plain_version(cuda_device, t, d):
+    """Every depth computes the chunked plain version's bits, with the
+    chunks ``ssm_chunks`` fixes from the shape."""
+    a, b, h0 = ssm_inputs(t, d, seed=t * 3 + d)
+    want_s, want_f = ssm_scan_chunked_ref(a, b, h0, ssm_chunks(t, d)[0])
+    for depth in (1, 2, 3, 4):
+        s, f = ssm_scan(a, b, h0, tile_config=TileConfig(bt=32, bd=128,
+                                                         depth=depth))
+        assert torch.equal(s, want_s) and torch.equal(f, want_f)
 
 
 @pytest.mark.parametrize("kernel,shape", [("dcim_mac", (128, 512, 512)),

@@ -295,7 +295,7 @@ class TestDispatchSpan:
         assert span.tags["tile"] == {"bn": 64, "bh": 32, "depth": 2}
 
     @pytest.mark.parametrize("h,tile_config,kernel", [
-        (64, None, "rows"), (300, None, "rows_interp"), (600, None, "tiled"),
+        (64, None, "rows"), (300, None, "rows_tall"), (600, None, "tiled"),
         (8, TileConfig(bh=32, bn=64), "tiled")])
     def test_csa_tree_span_names_its_kernel(self, h, tile_config, kernel):
         tracer.configure(enabled=True, sample=1.0)

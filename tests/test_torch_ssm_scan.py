@@ -8,8 +8,11 @@ reference on the fixed shapes, 3e-5 on the ragged random ones.  The
 Pallas kernels scan each chunk by log-depth doubling, the port's
 sequential plain version (which the CUDA kernel computes bit for bit) and
 the associative one in other orders, so float32 rounding differs by a few
-ulp; the tolerances bound that.  The CUDA kernel is held against the
-plain version on the card (``tests/test_torch_cuda.py``,
+ulp; the tolerances bound that.  The chunked plain version
+(``ssm_scan_chunked_ref``, which the CUDA kernel computes bit for bit) is
+held to the same tolerances at several chunk counts, and its split
+(``ssm_chunks``) to its contract.  The CUDA kernel is held against the
+plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
@@ -25,8 +28,13 @@ from repro.kernels.ssm_scan import (ssm_scan_pallas,
 
 from repro_torch.convert import ssm_operands_from_numpy
 from repro_torch.kernels import TileConfig, autotune
-from repro_torch.kernels.ssm_scan import (ssm_scan, ssm_scan_assoc_ref,
-                                          ssm_scan_cuda, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import (ssm_chunks, ssm_scan,
+                                          ssm_scan_assoc_ref,
+                                          ssm_scan_chunked_ref, ssm_scan_cuda,
+                                          ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan.ref import (SSM_MIN_CHUNK_ROWS,
+                                              SSM_PARALLEL_COLUMNS)
 from repro_torch.obs.metrics import get_registry
 
 # the JAX package's kernel-test shapes: padded T and D at the 64-blocks
@@ -102,6 +110,90 @@ class TestPlainVersions:
             np.testing.assert_array_equal(f.numpy(), h0)
 
 
+class TestChunkedPlainVersion:
+    """The chunked scan the card runs, against the JAX package's sequential
+    oracle and Pallas kernel, at several chunk counts."""
+
+    @pytest.mark.parametrize("t,d", SCAN_SHAPES + [(1000, 300), (1024, 256)])
+    @pytest.mark.parametrize("chunks", [1, 2, 5, 64, "split"])
+    def test_within_tolerance_of_jax(self, t, d, chunks):
+        a, b, h0 = inputs(t, d, seed=t * 13 + d)
+        chunks = ssm_chunks(t, d)[0] if chunks == "split" else chunks
+        s, f = ssm_scan_chunked_ref(*port(a, b, h0), chunks)
+        assert s.shape == (t, d) and f.shape == (d,)
+        np.testing.assert_array_equal(f.numpy(), s[-1].numpy())
+        s_j, f_j = jax_ssm_scan_ref(jnp.asarray(a), jnp.asarray(b),
+                                    jnp.asarray(h0))
+        close(s, s_j, 2e-5)
+        close(f, f_j, 2e-5)
+        if t <= 512:
+            s_p, f_p = ssm_scan_pallas(jnp.asarray(a), jnp.asarray(b),
+                                       jnp.asarray(h0), bt=64, bd=64,
+                                       interpret=True)
+            close(s, s_p, 2e-5)
+            close(f, f_p, 2e-5)
+
+    @pytest.mark.parametrize("t,d", RAGGED)
+    @pytest.mark.parametrize("chunks", [2, 3, "split"])
+    def test_ragged_random(self, t, d, chunks):
+        a, b, h0 = inputs(t, d, seed=t * 999 + d, lo=0.0)
+        chunks = ssm_chunks(t, d)[0] if chunks == "split" else chunks
+        s, f = ssm_scan_chunked_ref(*port(a, b, h0), chunks)
+        s_j, f_j = jax_ssm_scan_ref(jnp.asarray(a), jnp.asarray(b),
+                                    jnp.asarray(h0))
+        close(s, s_j, 3e-5)
+        close(f, f_j, 3e-5)
+
+    @pytest.mark.parametrize("t,d", SCAN_SHAPES)
+    def test_one_chunk_is_the_sequential_scan(self, t, d):
+        a, b, h0 = port(*inputs(t, d, seed=t + 7 * d))
+        s, f = ssm_scan_chunked_ref(a, b, h0, 1)
+        s_seq, f_seq = ssm_scan_ref(a, b, h0)
+        assert torch.equal(s, s_seq) and torch.equal(f, f_seq)
+
+    def test_empty_sequence_keeps_h0(self):
+        a, b, h0 = port(*inputs(0, 4, seed=6))
+        s, f = ssm_scan_chunked_ref(a, b, h0, 3)
+        assert s.shape == (0, 4) and torch.equal(f, h0)
+
+
+class TestChunkSplit:
+    """``ssm_chunks``: (S, L) from (T, D) alone."""
+
+    @pytest.mark.parametrize("t,d", SCAN_SHAPES + RAGGED + [
+        (1024, 256), (4096, 256), (1000, 300), (1024, 262_144),
+        (524_288, 64), (1, 1), (17, 1)])
+    def test_chunks_cover_t(self, t, d):
+        s, rows = ssm_chunks(t, d)
+        assert s >= 1 and rows >= 1
+        assert (s - 1) * rows < t <= s * rows
+        assert s <= 65_535
+        # the plain version, given S, derives the same chunk length
+        assert -(-t // s) == rows
+
+    @pytest.mark.parametrize("t", [1, 1024, 4096])
+    def test_wide_state_runs_one_pass(self, t):
+        assert ssm_chunks(t, 262_144) == (1, t)
+        assert ssm_chunks(t, SSM_PARALLEL_COLUMNS)[0] == 1
+
+    @pytest.mark.parametrize("t,d", [(1024, 256), (4096, 256), (1000, 300)])
+    def test_narrow_state_is_cut(self, t, d):
+        s, rows = ssm_chunks(t, d)
+        assert s > 1 and rows >= SSM_MIN_CHUNK_ROWS
+        # chunks no longer than it takes S x D to reach the target
+        assert rows <= max(SSM_MIN_CHUNK_ROWS,
+                           -(-t * d // SSM_PARALLEL_COLUMNS))
+
+    def test_split_takes_the_shape_alone(self):
+        """No tile, depth or card enters the split: it takes (T, D), and
+        the kernel binding asks it with nothing else."""
+        import inspect
+        from repro_torch.kernels.ssm_scan import kernel
+        assert list(inspect.signature(ssm_chunks).parameters) == ["t", "d"]
+        assert "ssm_chunks(t_len, d)" in inspect.getsource(
+            kernel.ssm_scan_cuda)
+
+
 class TestAgainstPallas:
     @pytest.mark.parametrize("t,d", SCAN_SHAPES)
     def test_grid_kernel(self, t, d):
@@ -168,6 +260,10 @@ class TestEntryPoint:
         before = dict(ssm_scan.launches)
         ssm_scan(*port(*inputs(20, 8, seed=1)))
         assert ssm_scan.launches == before
+
+    def test_launches_are_the_launch_functions_count(self):
+        assert ssm_scan.launches is ssm_kernel.LAUNCHES
+        assert set(ssm_scan.launches) == {"grid", "pipelined"}
 
     @pytest.mark.parametrize("tc", [TileConfig(bt=128, bd=128, depth=4),
                                     TileConfig(bt=32, bd=100),
