@@ -11,8 +11,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                generated for the row counts this run uses (one first,
                alone, for its first-use build time), all in parallel;
                print each kernel's registers and spill bytes from its
-               ptxas report (a spill in a ``csa_tree`` kernel fails the
-               run);
+               ptxas report (a spill in a ``csa_tree`` or ``dcim_mac``
+               kernel fails the run, as do a ``dcim_mac`` TMA kernel whose
+               wgmma pipeline ptxas serialized or whose registers are not
+               the 168 its ``setmaxnreg`` budget assumes);
   2. compiler  the compiler's batched main path on the four scenario specs
                at the full registered lattice (155,520 points per spec):
                ``mso_search_many`` and ``design_space_sweep_many(...)
@@ -21,12 +23,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                against the scalar oracle; the bounds of its two device
                kernels (A1 roll-up, A2 frontier masks);
   3. mac       the ``dcim_mac`` kernels at the qwen3-4b GEMM shapes
-               (``gemm_inventory``, seq 256) plus ragged shapes, driven
-               through the public wrappers with launch counts reset just
-               before and read just after; every output held equal to its
-               plain torch version on the card, one output to the bit-serial
-               DCIM reference; each kernel timed with CUDA events beside its
-               plain version, ``torch._int_mm`` and its bound;
+               (``gemm_inventory``, seq 256) plus ragged shapes and an
+               aligned square one, driven through the public wrappers with
+               launch counts reset just before and read just after: per
+               route, every qwen3-4b GEMM and the square on the TMA route
+               (``pipelined``), the ragged shapes on the ``grid`` route;
+               each GEMM's strips and K split printed; every output held
+               equal to its plain torch version on the card, one output to
+               the bit-serial DCIM reference; each kernel timed with CUDA
+               events beside its plain version, ``torch._int_mm`` and its
+               bound;
   4. csa       the ``csa_tree`` kernels on the qwen3-4b wk GEMM executed on
                the scenario specs' 64-row macro: the 40 K-chunk product
                stacks (64 x 262,144) through ``csa_tree_sum`` (rows route),
@@ -86,10 +92,14 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # data sheet's 34 TFLOP/s counting an FMA as two
 FP64_OPS_PER_S = 64 * 132 * 1.98e9
 
-# Ragged shapes of the JAX package's kernel tests, checked for equality
-# only; times and bounds are reported over the qwen3-4b GEMMs.
+# Ragged shapes of the JAX package's kernel tests (the grid route: rows
+# TMA cannot describe, or fewer than 64 tokens) and an aligned square
+# M == N shape on the TMA route (a row scale read as a column scale would
+# show), checked for equality only; times and bounds are reported over the
+# qwen3-4b GEMMs.
 RAGGED = (("ragged_8x16x8", 8, 16, 8), ("ragged_130x96x200", 130, 96, 200),
           ("ragged_1x512x64", 1, 512, 64))
+SQUARE = (("square_256x512x256", 256, 512, 256),)
 
 # The csa phase's ragged and wrapping stacks (H, N): one row, past the
 # whole-rows limit twice (tiled route), 129 to 512 rows (the rows route's
@@ -140,7 +150,8 @@ def phase_device() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0])
-    from repro_torch.kernels.build import CSRC, build_library, ptxas_report
+    from repro_torch.kernels.build import (CSRC, build_library, ptxas_report,
+                                          wgmma_serialized)
     from repro_torch.kernels.csa_tree.kernel import register_library
 
     t0 = time.perf_counter()
@@ -172,9 +183,16 @@ def phase_device() -> None:
             log(f"  {lib.name}: {fn}: {use['registers']} registers, spill "
                 f"stores {use['spill_stores']} B, spill loads "
                 f"{use['spill_loads']} B")
-            check(not lib.name.startswith("libcsa_tree")
+            check(not lib.name.startswith(("libcsa_tree", "libdcim_mac"))
                   or use["spill_stores"] == use["spill_loads"] == 0,
                   f"{lib.name} spills")
+            if lib.name.startswith("libdcim_mac") and "tma" in fn:
+                check(use["registers"] == 168,
+                      f"{fn}: {use['registers']} registers, not the 168 "
+                      "its setmaxnreg budget assumes")
+        serial = wgmma_serialized(lib.with_suffix(".log").read_text())
+        check(not serial, f"{lib.name}: ptxas serialized the wgmma "
+              f"pipeline of {sorted(serial)}")
 
 
 # ---------------------------------------------------------------------------
@@ -417,14 +435,19 @@ def phase_mac(language) -> list[dict]:
     from repro_torch.configs import get_config
     from repro_torch.convert import mac_operands_from_numpy
     from repro_torch.core import gemm_inventory
-    from repro_torch.kernels.dcim_mac import dcim_matmul, dcim_matmul_int
-    from repro_torch.kernels.dcim_mac import ref
+    from repro_torch.kernels.dcim_mac import (dcim_matmul, dcim_matmul_int,
+                                              mac_plan, mac_route, ref)
 
     gemms = [(g.name, g.m, g.k, g.n)
              for g in gemm_inventory(get_config("qwen3-4b"), seq=256)]
+    for name, m, k, n in gemms:
+        p = mac_plan(m, k, n)
+        log(f"mac: plan {name} {m}x{k}x{n}: {p.m_strips} x {p.n_strips} "
+            f"strips of 256 tokens x 128 columns, K split {p.splits} "
+            f"(stages {p.stage_ranges}), {p.blocks} blocks")
     rng = np.random.default_rng(SEED)
     ops = {}
-    for name, m, k, n in gemms + list(RAGGED):
+    for name, m, k, n in gemms + list(RAGGED) + list(SQUARE):
         ops[name] = mac_operands_from_numpy(
             rng.integers(-128, 128, (m, k), dtype=np.int8),
             rng.integers(-128, 128, (k, n), dtype=np.int8),
@@ -432,20 +455,30 @@ def phase_mac(language) -> list[dict]:
             rng.uniform(0.01, 2.0, n).astype(np.float32), device="cuda")
 
     # -- the main path: every shape through the public wrappers -------------
-    dcim_matmul.launches = 0
-    dcim_matmul_int.launches = 0
+    routes = {name: mac_route(a.shape[0], a.shape[1], w.shape[1],
+                              a.data_ptr(), w.data_ptr())
+              for name, (a, w, _, _) in ops.items()}
+    want_routes = {**{g[0]: "pipelined" for g in gemms + list(SQUARE)},
+                   **{r[0]: "grid" for r in RAGGED}}
+    check(routes == want_routes, f"routes {routes}, expected {want_routes}")
+    for counts in (dcim_matmul_int.launches, dcim_matmul.launches):
+        for route in counts:
+            counts[route] = 0
     outs = {}
     for name, (a, w, asc, wsc) in ops.items():
         outs[name] = (dcim_matmul_int(a, w),
                       dcim_matmul(a, w, asc, wsc, out_dtype=torch.float32),
                       dcim_matmul(a, w, asc, wsc, out_dtype=torch.bfloat16))
     torch.cuda.synchronize()
-    launches = {"dcim_mac_int": dcim_matmul_int.launches,
-                "dcim_mac": dcim_matmul.launches}
-    log(f"mac: launches on the main path {launches}")
-    check(launches["dcim_mac_int"] == len(ops)
-          and launches["dcim_mac"] == 2 * len(ops),
-          f"launch counts {launches} for {len(ops)} shapes")
+    by_route = {"dcim_mac_int": dict(dcim_matmul_int.launches),
+                "dcim_mac": dict(dcim_matmul.launches)}
+    log(f"mac: launches on the main path, per route {by_route}")
+    per_route = {r: sum(v == r for v in routes.values())
+                 for r in ("pipelined", "grid")}
+    check(by_route["dcim_mac_int"] == per_route
+          and by_route["dcim_mac"] == {r: 2 * c for r, c in per_route.items()},
+          f"launch counts {by_route} for routes {per_route}")
+    launches = {k: sum(v.values()) for k, v in by_route.items()}
 
     # -- held against the plain versions on the card -------------------------
     err = {"dcim_mac_int": 0.0, "dcim_mac": 0.0}
@@ -470,7 +503,8 @@ def phase_mac(language) -> list[dict]:
                   f"{name} {label}: kernel differs from its plain version "
                   f"(max |diff| {diff})")
     log("mac: every kernel output equals its plain version on the card "
-        "(int32, f32, bf16; qwen3-4b and ragged shapes)")
+        "(int32, f32, bf16; qwen3-4b, ragged and square shapes; both "
+        "routes)")
 
     # -- the bit-serial DCIM semantics at the chosen macro's precision -------
     chosen = max(language.frontier, key=lambda p: p.tops_per_w_1b["int_lo"])

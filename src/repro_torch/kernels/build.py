@@ -98,6 +98,15 @@ def build_source(name: str, text: str) -> Path:
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
+_SERIAL = re.compile(r"wgmma\.mma_async instructions are serialized.*"
+                     r"in the function '([^']+)'")
+
+
+def wgmma_serialized(log: str) -> set[str]:
+    """The kernels of a ``-Xptxas -v`` log whose ``wgmma`` pipeline ptxas
+    serialized (warning C7520): each ``wgmma`` then waits for the one
+    before it."""
+    return {m[1] for m in _SERIAL.finditer(log)}
 
 
 def ptxas_report(log: str) -> dict[str, dict[str, int]]:

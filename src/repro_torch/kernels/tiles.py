@@ -8,7 +8,8 @@ from :func:`tile_space`, times them and keeps the winner.
 
 Field semantics per kernel (unused fields stay None):
 
-  dcim_mac   bm x bn output tile, bk K-stage, depth shared-memory stages
+  dcim_mac   bm tokens x bn W columns of the TMA kernel's block, bk K
+             stage, depth stages in its TMA / mbarrier ring
   ssm_scan   bt T-chunk, bd D-tile (one thread per column), depth cp.async
              stages of (a, b) chunks (1: the plain-load kernel)
   csa_tree   bh row tile (the tiled-H kernel), bn columns (one thread each)
@@ -40,6 +41,11 @@ WARP = 32
 
 #: Threads one block may have.
 MAX_THREADS = 1024
+
+#: Ring depths (A stages in flight) the ``dcim_mac`` TMA kernel is
+#: compiled for, and its fixed count of raw and of transposed W stages.
+MAC_DEPTHS = (2, 3, 4)
+MAC_W_BUFS = 3
 
 #: Pipeline depths the ``ssm_scan`` kernel is compiled for (1 is the
 #: plain-load kernel, 2..4 the ``cp.async`` ring).
@@ -91,8 +97,10 @@ class TileConfig:
 #: Per-kernel default launch posture of the Hopper kernels.  Where it
 #: differs from the JAX package's TPU default:
 #:
-#:   dcim_mac  64 x 64 x 128 with two shared stages, the one block
-#:             ``csrc/dcim_mac.cu`` is compiled for (TPU: 128 x 128 x 128);
+#:   dcim_mac  256 tokens x 128 columns x 128-deep stages, a four-stage
+#:             TMA ring: the block ``csrc/dcim_mac.cu``'s TMA kernel is
+#:             compiled for (TPU: 128 x 128 x 128, two slots); the grid
+#:             route's ``mma.sync`` kernel has one 64 x 64 block of its own;
 #:   ssm_scan  bt 32 (TPU: 128): two stages of 128-row (a, b) chunks of
 #:             128 columns would need 256 KiB of shared memory;
 #:   csa_tree  bh 128 / bn 256 (the TPU's): the register kernel's largest
@@ -100,7 +108,7 @@ class TileConfig:
 #:             qwen3-4b wk product stack 1.7% faster than 128-thread
 #:             ones and a 64-row chunk as fast (``probes/csa_stage.py``).
 DEFAULT_TILES: dict[str, TileConfig] = {
-    "dcim_mac": TileConfig(bm=64, bn=64, bk=128, depth=2),
+    "dcim_mac": TileConfig(bm=256, bn=128, bk=128, depth=4),
     "ssm_scan": TileConfig(bt=32, bd=128, depth=2),
     "csa_tree": TileConfig(bh=128, bn=256, depth=1),
 }
@@ -127,7 +135,12 @@ def shape_class(kernel: str, shape: tuple[int, ...]) -> str:
 def smem_bytes(kernel: str, cfg: TileConfig) -> int:
     """Shared memory one block of the port's kernel uses under ``cfg``."""
     if kernel == "dcim_mac":
-        return cfg.depth * (cfg.bm * cfg.bk + cfg.bk * cfg.bn)
+        # 1 KB to align the 128-byte swizzle's atoms, the ring of `depth`
+        # A stages, MAC_W_BUFS raw and as many transposed W stages, and two
+        # mbarriers (8 bytes each: full, empty) per stage of each
+        return (1024 + cfg.depth * cfg.bm * cfg.bk
+                + 2 * MAC_W_BUFS * cfg.bk * cfg.bn
+                + 8 * 2 * (cfg.depth + 2 * MAC_W_BUFS))
     if kernel == "ssm_scan":
         return 4 * 2 * cfg.depth * cfg.bt * cfg.bd
     if kernel == "csa_tree":
@@ -142,8 +155,9 @@ def _threads_ok(n: int | None) -> bool:
 def feasible(kernel: str, cfg: TileConfig) -> bool:
     """Whether the port's kernel can launch with ``cfg`` on Hopper."""
     if kernel == "dcim_mac":
-        return cfg == DEFAULT_TILES["dcim_mac"]
-    if kernel == "ssm_scan":
+        block = dataclasses.replace(cfg, depth=DEFAULT_TILES[kernel].depth)
+        ok = block == DEFAULT_TILES[kernel] and cfg.depth in MAC_DEPTHS
+    elif kernel == "ssm_scan":
         ok = (cfg.bt is not None and cfg.bt >= 1 and _threads_ok(cfg.bd)
               and cfg.depth in SSM_DEPTHS)
     elif kernel == "csa_tree":
@@ -171,8 +185,9 @@ def tile_space(kernel: str, shape: tuple[int, ...]) -> list[TileConfig]:
     out: list[TileConfig] = []
     if kernel == "dcim_mac":
         # the kernel masks ragged edges itself: its one block serves every
-        # (M, K, N)
-        out.append(DEFAULT_TILES["dcim_mac"])
+        # (M, K, N); the ring depths it is compiled for
+        out += [dataclasses.replace(DEFAULT_TILES["dcim_mac"], depth=d)
+                for d in MAC_DEPTHS]
     elif kernel == "ssm_scan":
         t, d = shape
         for bt in _clamp((32, 64, 128, 256), t, WARP):
@@ -195,7 +210,9 @@ def tile_space(kernel: str, shape: tuple[int, ...]) -> list[TileConfig]:
 
 
 _RULES = {
-    "dcim_mac": "its one compiled block",
+    "dcim_mac": f"its one compiled block {DEFAULT_TILES['dcim_mac'].bm} x "
+                f"{DEFAULT_TILES['dcim_mac'].bn} x "
+                f"{DEFAULT_TILES['dcim_mac'].bk}; depth in {MAC_DEPTHS}",
     "ssm_scan": f"shared memory of {SMEM_BUDGET_BYTES} B a block; bd a "
                 f"multiple of {WARP} up to {MAX_THREADS}; depth in "
                 f"{SSM_DEPTHS}",

@@ -27,12 +27,16 @@ from repro_torch.core import subcircuits as sc
 from repro_torch.convert import (csa_operands_from_numpy,
                                  ssm_operands_from_numpy)
 from repro_torch.kernels import TileConfig, autotune
-from repro_torch.kernels.build import ptxas_report
+from repro_torch.kernels.build import (library_path, ptxas_report,
+                                      wgmma_serialized)
 from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
                                           csa_tree_ref, csa_tree_rows_cuda,
                                           csa_tree_sum, csa_tree_tiled_cuda)
 from repro_torch.kernels.csa_tree.kernel import register_library
-from repro_torch.kernels.dcim_mac import dcim_matmul, dcim_matmul_int, ref
+from repro_torch.kernels.dcim_mac import (dcim_matmul, dcim_matmul_int,
+                                          mac_plan, mac_route, ref)
+from repro_torch.kernels.dcim_mac import kernel as mac_kernel
+from repro_torch.kernels.tiles import MAC_DEPTHS, smem_bytes
 from repro_torch.kernels.ssm_scan import (ssm_chunks, ssm_scan,
                                           ssm_scan_chunked_ref, ssm_scan_ref)
 from repro_torch.obs.metrics import get_registry
@@ -40,9 +44,15 @@ from repro_torch.obs.metrics import get_registry
 pytestmark = pytest.mark.cuda
 
 # padded, one block, multi-block, ragged, a single row, and the qwen3-4b
-# wk GEMM at seq 256
+# wk GEMM at seq 256; then TMA-route shapes at a small K with each split
+# count the plan picks for the qwen3-4b GEMMs (1, 2, 4, 8), ragged M and N
+# strips, M > 256, and aligned squares (M == N: a row scale read as a
+# column scale would show)
 MAC_SHAPES = [(8, 16, 8), (128, 128, 128), (128, 256, 384), (130, 96, 200),
-              (1, 512, 64), (256, 2560, 1024)]
+              (1, 512, 64), (256, 2560, 1024),
+              (256, 256, 512), (256, 1024, 4096), (256, 768, 512),
+              (256, 1024, 256), (130, 96, 208), (600, 640, 384),
+              (256, 256, 256), (512, 384, 512)]
 
 
 @pytest.fixture
@@ -64,10 +74,63 @@ def operands(m, k, n, seed, device):
 @pytest.mark.parametrize("m,k,n", MAC_SHAPES)
 def test_int_kernel_equals_plain_version(cuda_device, m, k, n):
     a, w, _, _ = operands(m, k, n, seed=m + k, device=cuda_device)
-    before = dcim_matmul_int.launches
+    route = mac_route(m, k, n, a.data_ptr(), w.data_ptr())
+    before = dict(dcim_matmul_int.launches)
     got = dcim_matmul_int(a, w)
-    assert dcim_matmul_int.launches == before + 1
+    assert dcim_matmul_int.launches == {**before, route: before[route] + 1}
     assert torch.equal(got, ref.dcim_matmul_int_ref(a, w))
+
+
+def test_mac_shapes_cover_both_routes_and_every_split(cuda_device):
+    routes = {mac_route(m, k, n) for m, k, n in MAC_SHAPES}
+    assert routes == {"pipelined", "grid"}
+    splits = {mac_plan(m, k, n).splits for m, k, n in MAC_SHAPES
+              if mac_route(m, k, n) == "pipelined"}
+    assert splits == {1, 2, 4, 8}
+
+
+@pytest.mark.parametrize("depth", MAC_DEPTHS)
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 256), (300, 640, 384)])
+def test_every_ring_depth_equals_plain_version(cuda_device, depth, m, k, n):
+    a, w, asc, wsc = operands(m, k, n, seed=depth, device=cuda_device)
+    tc = TileConfig(depth=depth)
+    assert torch.equal(dcim_matmul_int(a, w, tile_config=tc),
+                       ref.dcim_matmul_int_ref(a, w))
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(dcim_matmul(a, w, asc, wsc, out_dtype=dt,
+                                       tile_config=tc),
+                           ref.dcim_matmul_ref(a, w, asc, wsc, out_dtype=dt))
+
+
+def test_square_tma_scales_are_per_row_and_per_column(cuda_device):
+    """M == N on the TMA route with distinct row and column scales."""
+    m = n = 256
+    a, w, _, _ = operands(m, 512, n, seed=11, device=cuda_device)
+    asc = torch.linspace(0.5, 2.0, m, device=cuda_device)
+    wsc = torch.linspace(3.0, 0.25, n, device=cuda_device)
+    assert mac_route(m, 512, n, a.data_ptr(), w.data_ptr()) == "pipelined"
+    got = dcim_matmul(a, w, asc, wsc)
+    assert torch.equal(got, ref.dcim_matmul_ref(a, w, asc, wsc))
+    assert not torch.equal(got, ref.dcim_matmul_ref(a, w, wsc, asc))
+
+
+def test_dcim_mac_kernels_do_not_spill(cuda_device):
+    """No dcim_mac kernel spills, ptxas keeps every TMA kernel's wgmma
+    pipeline, and the TMA kernels have the 168 registers a thread their
+    setmaxnreg budget assumes; the tile space's shared memory is the
+    kernel's own count."""
+    mac_kernel._lib()
+    log = library_path("dcim_mac").with_suffix(".log").read_text()
+    report = ptxas_report(log)
+    assert len(report) == 3 * (1 + len(MAC_DEPTHS))
+    for fn, usage in report.items():
+        assert usage["spill_stores"] == usage["spill_loads"] == 0, fn
+        if "tma" in fn:
+            assert usage["registers"] == 168, fn
+    assert wgmma_serialized(log) == set()
+    for d in MAC_DEPTHS:
+        assert mac_kernel.tma_smem_bytes(d) == smem_bytes(
+            "dcim_mac", TileConfig(bm=256, bn=128, bk=128, depth=d))
 
 
 @pytest.mark.parametrize("m,k,n", MAC_SHAPES)
@@ -96,6 +159,19 @@ def test_misaligned_operands_take_the_byte_path(cuda_device):
     a_off.copy_(a)
     assert torch.equal(dcim_matmul_int(a_off, w),
                        ref.dcim_matmul_int_ref(a, w))
+
+
+def test_misaligned_tma_shape_takes_the_grid_route(cuda_device):
+    """A shape the TMA route takes, with an A one byte into its storage:
+    the grid kernel runs it, exactly."""
+    a, w, asc, wsc = operands(256, 512, 256, seed=3, device=cuda_device)
+    a_off = torch.empty(a.numel() + 1, dtype=torch.int8,
+                        device=cuda_device)[1:].view(a.shape)
+    a_off.copy_(a)
+    before = dict(dcim_matmul.launches)
+    got = dcim_matmul(a_off, w, asc, wsc)
+    assert dcim_matmul.launches == {**before, "grid": before["grid"] + 1}
+    assert torch.equal(got, ref.dcim_matmul_ref(a, w, asc, wsc))
 
 
 def test_compiler_device_path_equals_cpu(cuda_device):

@@ -29,8 +29,9 @@ from repro_torch.kernels import (DEFAULT_TILES, TileConfig, autotune,
                                  shape_class, ssm_scan, tile_space)
 from repro_torch.kernels.autotune import TILE_SCHEMA, tile_key
 from repro_torch.kernels.tiles import (CSA_REG_ROWS, CSA_THREADS, KERNELS,
-                                       MAX_THREADS, SMEM_BUDGET_BYTES, WARP,
-                                       feasible, smem_bytes)
+                                       MAC_DEPTHS, MAC_W_BUFS, MAX_THREADS,
+                                       SMEM_BUDGET_BYTES, WARP, feasible,
+                                       smem_bytes)
 from repro_torch.obs import tracer
 from repro_torch.obs.metrics import get_registry
 
@@ -83,7 +84,7 @@ class TestTiles:
         for tc in space:
             assert feasible(kernel, tc)
             assert smem_bytes(kernel, tc) <= SMEM_BUDGET_BYTES
-            threads = {"dcim_mac": 128, "ssm_scan": tc.bd,
+            threads = {"dcim_mac": 384, "ssm_scan": tc.bd,
                        "csa_tree": tc.bn}[kernel]
             assert threads % WARP == 0 and threads <= MAX_THREADS
             if kernel == "csa_tree":
@@ -114,9 +115,41 @@ class TestTiles:
         assert {tc.bd for tc in space} == {WARP}
 
     def test_dcim_mac_space_is_the_compiled_block(self):
+        """The TMA kernel's one block at each ring depth it is compiled
+        for, the default (four stages) first, every shape alike."""
+        block = TileConfig(bm=256, bn=128, bk=128, depth=4)
+        assert DEFAULT_TILES["dcim_mac"] == block
         for shape in SHAPES["dcim_mac"]:
-            assert tile_space("dcim_mac", shape) == \
-                [TileConfig(bm=64, bn=64, bk=128, depth=2)]
+            space = tile_space("dcim_mac", shape)
+            assert space[0] == block
+            assert [tc.depth for tc in space] == [4, 2, 3]
+            assert {(tc.bm, tc.bn, tc.bk) for tc in space} == {(256, 128, 128)}
+
+    @pytest.mark.parametrize("depth", MAC_DEPTHS)
+    def test_dcim_mac_smem_is_the_kernels_count(self, depth):
+        """What the kernel allocates: 1 KB alignment slack, ``depth`` A
+        stages of 256 x 128 bytes, MAC_W_BUFS raw and as many transposed W
+        stages of 128 x 128 bytes, two 8-byte mbarriers per stage of each
+        ring; within the block's shared memory (the card test holds it
+        against the kernel's own count)."""
+        cfg = TileConfig(bm=256, bn=128, bk=128, depth=depth)
+        want = (1024 + depth * 256 * 128 + 2 * MAC_W_BUFS * 128 * 128
+                + 16 * (depth + 2 * MAC_W_BUFS))
+        assert smem_bytes("dcim_mac", cfg) == want <= SMEM_BUDGET_BYTES
+        # the K split's partial tile (256 x 128 int32) fits in the rings
+        assert depth * 256 * 128 + 2 * MAC_W_BUFS * 128 * 128 >= 256 * 128 * 4
+
+    @pytest.mark.parametrize("tc", [
+        TileConfig(bm=256, bn=128, bk=128, depth=1),
+        TileConfig(bm=256, bn=128, bk=128, depth=5),
+        TileConfig(bm=128, bn=128, bk=128, depth=4),
+        TileConfig(bm=256, bn=256, bk=128, depth=4),
+        TileConfig(bm=256, bn=128, bk=64, depth=4),
+        TileConfig(bm=64, bn=64, bk=128, depth=2)])
+    def test_dcim_mac_outside_the_compiled_block(self, tc):
+        assert not feasible("dcim_mac", tc)
+        with pytest.raises(ValueError, match="Hopper"):
+            resolve_tile("dcim_mac", tc)
 
     def test_unknown_kernel_raises(self):
         with pytest.raises(ValueError, match="unknown kernel"):
@@ -235,7 +268,9 @@ class TestDispatchCounters:
         a = rng.uniform(0.7, 1.0, (40, 128)).astype(np.float32)
         b = rng.normal(size=(40, 128)).astype(np.float32)
         h0 = np.zeros(128, np.float32)
-        qa = rng.integers(-8, 8, (8, 128), dtype=np.int8)
+        # 64 tokens, aligned rows: the port's TMA route, "pipelined" as the
+        # JAX package's default depth-2 call
+        qa = rng.integers(-8, 8, (64, 128), dtype=np.int8)
         qw = rng.integers(-8, 8, (128, 64), dtype=np.int8)
         j, t = jnp.asarray, torch.as_tensor
         jtc, ttc = jax_tiles.TileConfig, TileConfig
