@@ -7,14 +7,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
   1. device    print the card's name and power limit, build every CUDA
                kernel of the port from ``src/repro_torch/csrc``: the
-               hand-written sources and the ``csa_tree`` register kernels
-               generated for the row counts this run uses (one first,
-               alone, for its first-use build time), all in parallel;
-               print each kernel's registers and spill bytes from its
-               ptxas report (a spill in a ``csa_tree`` or ``dcim_mac``
-               kernel fails the run, as do a ``dcim_mac`` TMA kernel whose
-               wgmma pipeline ptxas serialized or whose registers are not
-               the 168 its ``setmaxnreg`` budget assumes);
+               hand-written sources, their profiling skeletons (the
+               ``skeletons`` build of ``dcim_mac.cu`` and ``ssm_scan.cu``)
+               and the ``csa_tree`` register kernels generated for the row
+               counts this run uses (one first, alone, for its first-use
+               build time), all in parallel; print each kernel's registers
+               and spill bytes from its ptxas report (a spill in a
+               ``csa_tree`` or ``dcim_mac`` kernel fails the run, as do a
+               ``dcim_mac`` TMA kernel whose wgmma pipeline ptxas
+               serialized or, where it has ``setmaxnreg``, whose registers
+               are not the 168 its budget assumes);
   2. compiler  the compiler's batched main path on the four scenario specs
                at the full registered lattice (155,520 points per spec):
                ``mso_search_many`` and ``design_space_sweep_many(...)
@@ -27,7 +29,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                aligned square one, driven through the public wrappers with
                launch counts reset just before and read just after: per
                route, every qwen3-4b GEMM and the square on the TMA route
-               (``pipelined``), the ragged shapes on the ``grid`` route;
+               (``pipelined``), the ragged shapes whose rows TMA cannot
+               describe on the ``grid`` route;
                each GEMM's strips and K split printed; every output held
                equal to its plain torch version on the card, one output to
                the bit-serial DCIM reference; each kernel timed with CUDA
@@ -56,11 +59,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
                default targets (each winner within its exactness gate),
                then one ``tile_config="auto"`` call of each entry point,
                which must read the tuner's memo;
-  7. report    one ``{"kernels": [...]}`` line, then as the last line
+  7. profile   the kernels' profiling skeletons (``dcim_mac`` copy and
+               compute, ``csa_tree`` copy, ``ssm_scan`` copy and compute)
+               first held bit for bit against their plain versions at the
+               main-path shapes (the six qwen3-4b GEMMs, the wk product
+               stack on the tiled route, the zamba2 state and (4096, 256))
+               and one ragged shape each; then ``profile_kernel`` on the
+               main-path shapes, one line per point (copy / compute / fused
+               us, bound, fraction), and its artifact written to
+               ``chiprun_out/kernel_profile.json``;
+  8. serving   the compiler phase's four scenario searches on cuda and on
+               cpu pooled by ``frontier_union``, then
+               ``cross_workload_codesign`` over the qwen3-4b and
+               zamba2-1.2b GEMM inventories (full width, every layer): the
+               two reports bit-identical; ``dcim_serving_bound`` of each
+               workload's best macro at ``kernel_fraction`` 1.0 and at the
+               fraction the profile phase measured;
+  9. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
-Each of phases 3-5 sets its kernels' launch counts to 0 just before its
-main path and reads them just after; every kernel must have launched.
+Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
+its main path and reads them just after; every kernel must have launched.
 
 It needs one CUDA card and exits non-zero without one, and when it does not
 sit at the root of a checkout of the repository.
@@ -92,13 +111,14 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # data sheet's 34 TFLOP/s counting an FMA as two
 FP64_OPS_PER_S = 64 * 132 * 1.98e9
 
-# Ragged shapes of the JAX package's kernel tests (the grid route: rows
-# TMA cannot describe, or fewer than 64 tokens) and an aligned square
-# M == N shape on the TMA route (a row scale read as a column scale would
-# show), checked for equality only; times and bounds are reported over the
-# qwen3-4b GEMMs.
+# Ragged shapes of the JAX package's kernel tests (the grid route for rows
+# TMA cannot describe, GRID_ROUTE; one token on the TMA route) and an
+# aligned square M == N shape on the TMA route (a row scale read as a
+# column scale would show), checked for equality only; times and bounds
+# are reported over the qwen3-4b GEMMs.
 RAGGED = (("ragged_8x16x8", 8, 16, 8), ("ragged_130x96x200", 130, 96, 200),
           ("ragged_1x512x64", 1, 512, 64))
+GRID_ROUTE = {"ragged_8x16x8", "ragged_130x96x200"}
 SQUARE = (("square_256x512x256", 256, 512, 256),)
 
 # The csa phase's ragged and wrapping stacks (H, N): one row, past the
@@ -150,9 +170,11 @@ def phase_device() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     log(smi.stdout.strip().splitlines()[0])
-    from repro_torch.kernels.build import (CSRC, build_library, ptxas_report,
-                                          wgmma_serialized)
+    from repro_torch.kernels.build import (CSRC, SKELETON_SOURCES,
+                                          SKELETONS, build_library,
+                                          ptxas_report, wgmma_serialized)
     from repro_torch.kernels.csa_tree.kernel import register_library
+    from repro_torch.kernels.dcim_mac.kernel import tma_kernel_mode
 
     t0 = time.perf_counter()
     first = register_library(CSA_MACRO_ROWS, True)
@@ -161,6 +183,8 @@ def phase_device() -> None:
     names = sorted(p.stem for p in CSRC.glob("*.cu"))
     generated = sorted(csa_register_kernels() - {(CSA_MACRO_ROWS, True)})
     jobs = [lambda n=n: build_library(n) for n in names]
+    jobs += [lambda n=n: build_library(n, SKELETONS)
+             for n in SKELETON_SOURCES]
     jobs += [lambda r=r: register_library(*r) for r in generated]
 
     def timed(job):
@@ -170,7 +194,8 @@ def phase_device() -> None:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(timed, jobs))
-    log(f"device: built {names} and {len(generated)} more generated "
+    log(f"device: built {names}, the {SKELETONS} of {list(SKELETON_SOURCES)} "
+        f"and {len(generated)} more generated "
         f"csa_tree kernels (rows, compressors) {generated} in parallel in "
         f"{time.perf_counter() - t0:.3f} s")
     log("device: each build's wall time in the parallel batch: "
@@ -186,7 +211,7 @@ def phase_device() -> None:
             check(not lib.name.startswith(("libcsa_tree", "libdcim_mac"))
                   or use["spill_stores"] == use["spill_loads"] == 0,
                   f"{lib.name} spills")
-            if lib.name.startswith("libdcim_mac") and "tma" in fn:
+            if tma_kernel_mode(fn) in ("fused", "compute"):
                 check(use["registers"] == 168,
                       f"{fn}: {use['registers']} registers, not the 168 "
                       "its setmaxnreg budget assumes")
@@ -341,7 +366,8 @@ def phase_compiler() -> dict:
     log(f"compiler: bounds on the card: A1 _eval_kernel (4 specs) "
         f"{a1[0]:.6f} ms ({a1[1]}), A2 chunk_dominated (4 frontiers) "
         f"{a2[0]:.6f} ms ({a2[1]})")
-    return {"language": res_g[names.index("language")]}
+    return {"language": res_g[names.index("language")],
+            "results": {"cuda": res_g, "cpu": res_c}}
 
 
 def _a1_bound_ms(specs, tech, config) -> tuple[float, str]:
@@ -393,27 +419,13 @@ def _a2_bound_ms(sweeps) -> tuple[float, str]:
 
 
 def _time_ms(fn, reps: int = 20) -> float:
-    """Median device time of one ``fn()`` call, by CUDA events, with the L2
-    cache flushed before each call (a model step finds its weights cold).
-    A device-side spin after the flush lets the host queue ``fn``'s launches
-    before the start event runs, so host overhead between the events is
-    not counted as device time."""
+    """Median device time of one ``fn()`` call: CUDA events, the L2 cache
+    flushed and the device spun before each call
+    (:func:`repro_torch.kernels.timing.times_ms`)."""
     import torch
-    flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    events = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(2_000_000)           # ~1 ms at the card's clock
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+    from repro_torch.kernels.timing import times_ms
+    return float(np.median(times_ms(fn, reps, torch.device("cuda"))))
 
 
 def _bound_ms(m: int, k: int, n: int, out_bytes: int, epilogue: bool
@@ -458,8 +470,8 @@ def phase_mac(language) -> list[dict]:
     routes = {name: mac_route(a.shape[0], a.shape[1], w.shape[1],
                               a.data_ptr(), w.data_ptr())
               for name, (a, w, _, _) in ops.items()}
-    want_routes = {**{g[0]: "pipelined" for g in gemms + list(SQUARE)},
-                   **{r[0]: "grid" for r in RAGGED}}
+    want_routes = {name: "grid" if name in GRID_ROUTE else "pipelined"
+                   for name in ops}
     check(routes == want_routes, f"routes {routes}, expected {want_routes}")
     for counts in (dcim_matmul_int.launches, dcim_matmul.launches):
         for route in counts:
@@ -597,6 +609,16 @@ def _csa_bound_ms(h: int, n: int, bh: int | None = None
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _product_stack(a, w):
+    """stack[k, m * N + n] = a[m, k] * w[k, n] (int32): the products one
+    macro column of K rows reduces; a macro's K chunks are row slices of
+    it."""
+    import torch
+    (m, k), n = a.shape, w.shape[1]
+    return (a.t().to(torch.int32)[:, :, None]
+            * w.to(torch.int32)[:, None, :]).reshape(k, m * n).contiguous()
+
+
 def phase_csa(wk) -> list[dict]:
     """The adder tree of the macro the compiler designs, on the qwen3-4b wk
     GEMM executed on the scenario specs' 64-row macro: every 64-row K chunk
@@ -618,10 +640,7 @@ def phase_csa(wk) -> list[dict]:
     check(heights == {CSA_MACRO_ROWS},
           f"scenario macros have {heights} rows, expected {CSA_MACRO_ROWS}")
     (m, k), n = a.shape, w.shape[1]
-    # stack[k, m * N + n] = a[m, k] * w[k, n]: the products one macro column
-    # of K rows reduces; a macro's K chunks are row slices of it
-    stack = (a.t().to(torch.int32)[:, :, None]
-             * w.to(torch.int32)[:, None, :]).reshape(k, m * n).contiguous()
+    stack = _product_stack(a, w)
     chunks = {h: [stack[c:c + h] for c in range(0, k, h)]
               for h in (CSA_MACRO_ROWS, CSA_TALL_MACRO_ROWS)}
     check(k % CSA_TALL_MACRO_ROWS == 0
@@ -943,6 +962,288 @@ def phase_autotune() -> None:
         "memo +1)")
 
 
+# ---------------------------------------------------------------------------
+# 7. profile
+# ---------------------------------------------------------------------------
+
+# One ragged shape per kernel beside the main-path shapes for the
+# skeletons' check: ragged M and N over a K whose last stage is partial; a
+# ragged last tile; T not a multiple of bt (the copy skeleton's final state
+# is then its last state, not h0).
+PROFILE_RAGGED = {"dcim_mac": (130, 2000, 208), "csa_tree": (600, 300),
+                  "ssm_scan": (1000, 300)}
+
+# The zamba2-1.2b Mamba2 layer's SSD state (phase ssm)
+ZAMBA_STATE = (1024, 262_144)
+
+# The skeletons: kernels-line name -> (kernel, mode, TPU site of its body)
+SKELETON_KERNELS = {
+    "dcim_mac_tma_copy": ("dcim_mac", "copy",
+                          "src/repro/kernels/dcim_mac/kernel.py:159"),
+    "dcim_mac_tma_compute": ("dcim_mac", "compute",
+                             "src/repro/kernels/dcim_mac/kernel.py:159"),
+    "csa_tree_tiled_copy": ("csa_tree", "copy",
+                            "src/repro/kernels/csa_tree/kernel.py:128"),
+    "ssm_scan_copy": ("ssm_scan", "copy",
+                      "src/repro/kernels/ssm_scan/kernel.py:120"),
+    "ssm_scan_compute": ("ssm_scan", "compute",
+                         "src/repro/kernels/ssm_scan/kernel.py:120"),
+}
+
+
+def _skeleton_bound_ms(name: str, shape) -> tuple[float, str]:
+    """Least time of one skeleton call's work on the card, at the default
+    tile: the bytes its token needs moved (inputs read once, outputs
+    written once) against the operations it needs, each at its peak."""
+    from repro_torch.kernels.dcim_mac import mac_plan
+    from repro_torch.kernels.ssm_scan import ssm_chunks
+    from repro_torch.kernels.tiles import DEFAULT_TILES
+
+    if name.startswith("dcim_mac"):
+        m, k, n = shape
+        plan = mac_plan(m, k, n)
+        if name.endswith("copy"):
+            # A and W streamed, the token summed per strip, the output
+            nbytes = m * k + k * n + 4 * m * n
+            t_ops = (2 * plan.stages * plan.m_strips * plan.n_strips
+                     / INT32_OPS_PER_S)
+        else:
+            # each split's first stage read, all its stages' products
+            widths = [min(128, k - k0) for k0, _ in plan.k_ranges]
+            nbytes = sum((m + n) * wd for wd in widths) + 4 * m * n
+            t_ops = sum(2 * m * n * wd * (e - b) for wd, (b, e) in
+                        zip(widths, plan.stage_ranges)) / INT8_OPS_PER_S
+    elif name.startswith("csa_tree"):
+        h, n = shape
+        bh = DEFAULT_TILES["csa_tree"].bh
+        nbytes = 4 * (h * n + n)
+        t_ops = -(-h // bh) * n / INT32_OPS_PER_S
+    else:
+        t, d = shape
+        chunks, rows = ssm_chunks(t, d)
+        if name.endswith("copy"):
+            nbytes = 4 * (3 * t * d + 2 * d)
+            t_ops = t * d / F32_OPS_PER_S
+        else:
+            # each chunk's resident rows, h0 and the final state; passes 1
+            # and 2 for the chunks before the last, pass 3 for the last
+            sub = min(DEFAULT_TILES["ssm_scan"].bt, rows)
+            last = t - (chunks - 1) * rows
+            nbytes = 4 * (2 * chunks * sub * d + 2 * d)
+            t_ops = ((3 * (chunks - 1) * rows + 2 * (chunks - 1) + 2 * last)
+                     * d / F32_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_profile(wk) -> tuple[list[dict], Path]:
+    """The profiling skeletons held bit for bit against their plain
+    versions at the main-path shapes and a ragged one each, then
+    ``profile_kernel`` on the main-path shapes; returns the skeletons'
+    entries of the kernels line and the artifact's path."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gemm_inventory
+    from repro_torch.kernels import profile
+    from repro_torch.kernels.csa_tree import kernel as csa_k
+    from repro_torch.kernels.csa_tree.ref import csa_tree_copy_ref
+    from repro_torch.kernels.dcim_mac import kernel as mac_k
+    from repro_torch.kernels.dcim_mac import ref as mac_ref
+    from repro_torch.kernels.ssm_scan import kernel as ssm_k
+    from repro_torch.kernels.ssm_scan import ssm_chunks
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_compute_ref,
+                                                  ssm_scan_copy_ref)
+    from repro_torch.kernels.tiles import DEFAULT_TILES
+
+    mac_tc, csa_tc, ssm_tc = (DEFAULT_TILES[k] for k in
+                              ("dcim_mac", "csa_tree", "ssm_scan"))
+    a_wk, w_wk, _ = wk
+    stack = _product_stack(a_wk, w_wk)
+    points = {
+        "dcim_mac": [(g.m, g.k, g.n) for g in
+                     gemm_inventory(get_config("qwen3-4b"), seq=256)],
+        "csa_tree": [tuple(stack.shape)],
+        "ssm_scan": [ZAMBA_STATE, (4096, 256)],
+    }
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    inputs = {"csa_tree": {tuple(stack.shape): (stack,)}}
+    for m, k, n in points["dcim_mac"] + [PROFILE_RAGGED["dcim_mac"]]:
+        inputs.setdefault("dcim_mac", {})[(m, k, n)] = tuple(
+            torch.randint(-128, 128, shape, generator=g, device="cuda",
+                          dtype=torch.int8) for shape in ((m, k), (k, n)))
+    inputs["csa_tree"][PROFILE_RAGGED["csa_tree"]] = (torch.randint(
+        -2 ** 31, 2 ** 31 - 1, PROFILE_RAGGED["csa_tree"], generator=g,
+        device="cuda", dtype=torch.int32),)
+    for t, d in points["ssm_scan"] + [PROFILE_RAGGED["ssm_scan"]]:
+        inputs.setdefault("ssm_scan", {})[(t, d)] = (
+            0.8 + 0.2 * torch.rand((t, d), generator=g, device="cuda"),
+            torch.randn((t, d), generator=g, device="cuda"),
+            torch.randn((d,), generator=g, device="cuda"))
+
+    def kernel_call(name, args):
+        kernel, mode, _ = SKELETON_KERNELS[name]
+        if kernel == "dcim_mac":
+            return mac_k.dcim_mac_int_cuda(*args, depth=mac_tc.depth,
+                                           _mode=mode)
+        if kernel == "csa_tree":
+            return csa_k.csa_tree_tiled_cuda(*args, bh=csa_tc.bh,
+                                             bn=csa_tc.bn, _mode=mode)
+        return ssm_k.ssm_scan_cuda(*args, bt=ssm_tc.bt, bd=ssm_tc.bd,
+                                   depth=ssm_tc.depth, _mode=mode)
+
+    def plain_call(name, args):
+        kernel, mode, _ = SKELETON_KERNELS[name]
+        if kernel == "dcim_mac":
+            return {"copy": mac_ref.dcim_mac_copy_ref,
+                    "compute": mac_ref.dcim_mac_compute_ref}[mode](*args)
+        if kernel == "csa_tree":
+            return csa_tree_copy_ref(*args, csa_tc.bh)
+        if mode == "copy":
+            return ssm_scan_copy_ref(*args, ssm_tc.bt)
+        chunks = ssm_chunks(*args[0].shape)[0]
+        return ssm_scan_compute_ref(*args, chunks, ssm_tc.bt)
+
+    # -- held: every skeleton's token equals its plain version --------------
+    err = {name: 0.0 for name in SKELETON_KERNELS}
+    for name, (kernel, mode, _) in SKELETON_KERNELS.items():
+        for shape, args in inputs[kernel].items():
+            got, want = kernel_call(name, args), plain_call(name, args)
+            torch.cuda.synchronize()
+            for x, y in (zip(got, want) if kernel == "ssm_scan"
+                         else [(got, want)]):
+                if y is None:
+                    check(x is None, f"profile: {name} {shape}: states "
+                          "written by the compute skeleton")
+                    continue
+                check(x.shape == y.shape and x.dtype == y.dtype,
+                      f"profile: {name} {shape}: {x.shape}/{x.dtype} vs "
+                      f"{y.shape}/{y.dtype}")
+                diff = (x.double() - y.double()).abs().max().item()
+                err[name] = max(err[name], diff)
+                check(torch.equal(x, y),
+                      f"profile: {name} {shape}: the skeleton differs from "
+                      f"its plain version (max |diff| {diff})")
+    log("profile: every skeleton equals its plain version bit for bit "
+        "(dcim_mac copy and compute at the six qwen3-4b GEMMs and "
+        f"{PROFILE_RAGGED['dcim_mac']}, csa_tree copy at the wk product "
+        f"stack {tuple(stack.shape)} and {PROFILE_RAGGED['csa_tree']}, "
+        f"ssm_scan copy and compute at {ZAMBA_STATE}, (4096, 256) and "
+        f"{PROFILE_RAGGED['ssm_scan']})")
+
+    # -- the main path: profile_kernel at the main-path shapes --------------
+    counts = {"dcim_mac": mac_k.SKELETON_LAUNCHES,
+              "csa_tree": csa_k.SKELETON_LAUNCHES,
+              "ssm_scan": ssm_k.SKELETON_LAUNCHES}
+    for c in counts.values():
+        for key in c:
+            c[key] = 0
+    profiles = []
+    for kernel, shapes in points.items():
+        for shape in shapes:
+            p = profile.profile_kernel(kernel, shape)
+            profiles.append(p)
+            log(f"profile: {kernel} {'x'.join(map(str, shape))}: copy "
+                f"{p.t_copy_us:.3f} us, compute {p.t_compute_us:.3f} us"
+                f"{'' if p.compute_measured else ' (fused - copy)'}, fused "
+                f"{p.t_fused_us:.3f} us, {p.bound}-bound, roofline fraction "
+                f"{p.roofline_fraction:.6f}")
+    torch.cuda.synchronize()
+    launches = {name: counts[kernel][mode]
+                for name, (kernel, mode, _) in SKELETON_KERNELS.items()}
+    log(f"profile: skeleton launches on the main path {launches}")
+    artifact = ROOT / "chiprun_out" / "kernel_profile.json"
+    artifact.parent.mkdir(exist_ok=True)
+    payload = profile.profiles_payload(profiles)
+    artifact.write_text(json.dumps(payload, indent=2, sort_keys=True) + "\n")
+    log(f"profile: aggregate roofline fraction (geomean) "
+        f"{payload['fraction']:.6f}; artifact {artifact.relative_to(ROOT)}")
+
+    # -- the kernels line: times beside the plain version and the bound -----
+    src = {"dcim_mac": "src/repro_torch/csrc/dcim_mac.cu",
+           "csa_tree": "src/repro_torch/csrc/csa_tree_reg.cu.in",
+           "ssm_scan": "src/repro_torch/csrc/ssm_scan.cu"}
+    out = []
+    for name, (kernel, mode, replaces) in SKELETON_KERNELS.items():
+        ps = [p for p in profiles if p.kernel == kernel]
+        bounds = [_skeleton_bound_ms(name, p.shape) for p in ps]
+        bound = sum(b for b, _ in bounds)
+        by_bytes = sum(b for b, by in bounds if by == "bytes")
+        args = [inputs[kernel][p.shape] for p in ps]
+        plain = sum(_time_ms(lambda a=a: plain_call(name, a), reps=3)
+                    for a in args)
+        # one torch call sums the tiles' first rows; no torch call computes
+        # the other tokens
+        library = (sum(_time_ms(lambda x=a[0]: torch.sum(
+            x[::csa_tc.bh], 0, dtype=torch.int32), reps=3) for a in args)
+            if kernel == "csa_tree" else None)
+        out.append({
+            "name": name, "route": "cuda", "source": src[kernel],
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err[name],
+            "ms": sum((p.t_copy_us if mode == "copy" else p.t_compute_us)
+                      for p in ps) / 1e3,
+            "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
+            "library_ms": library})
+        log(f"profile: {name}: {out[-1]['ms']:.6f} ms over "
+            f"{[p.shape for p in ps]}, plain {plain:.6f} ms, bound "
+            f"{bound:.6f} ms, library "
+            f"{'none' if library is None else f'{library:.6f} ms'}")
+    return out, artifact
+
+
+# ---------------------------------------------------------------------------
+# 8. serving
+# ---------------------------------------------------------------------------
+
+
+def phase_serving(results: dict, artifact: Path) -> None:
+    """Cross-workload co-design of the scenario frontiers' pool for the
+    port's two configurations, from the cuda and the cpu searches (bit for
+    bit the same), and the serving bound of each workload's best macro at
+    kernel fractions 1.0 and as profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (cross_workload_codesign, frontier_union,
+                                  gemm_inventory)
+    from repro_torch.kernels.profile import fraction_from_profile_artifact
+    from repro_torch.roofline.dcim import dcim_serving_bound
+
+    workloads = {arch: gemm_inventory(get_config(arch), seq=256)
+                 for arch in ("qwen3-4b", "zamba2-1.2b")}
+    reports = {dev: cross_workload_codesign(workloads,
+                                            frontier_union(results[dev]))
+               for dev in ("cuda", "cpu")}
+    rg, rc = reports["cuda"], reports["cpu"]
+    arrays = ("wallclock_s", "energy_pj", "effective_tops", "avg_util",
+              "area_mm2", "total_wallclock_s", "total_energy_pj")
+    check(rg.designs == rc.designs and rg.frontier == rc.frontier
+          and all(_same_array(getattr(rg, f), getattr(rc, f))
+                  for f in arrays)
+          and all(rg.best_for(w) == rc.best_for(w) for w in workloads),
+          "serving: the cuda and cpu co-design reports differ")
+    check(len(rg.frontier) > 0, "serving: empty co-design frontier")
+    log(f"serving: pool of {len(rg.designs)} designs from "
+        f"{len(results['cuda'])} scenario frontiers; co-design frontier "
+        f"{[rg.designs[i] for i in rg.frontier]}; cuda == cpu bit for bit "
+        f"({', '.join(arrays)}, frontier, best_for)")
+    fraction = fraction_from_profile_artifact(artifact)
+    for wl, gemms in workloads.items():
+        best = rg.best_for(wl)
+        wall = float(rg.wallclock_s[rg.workloads.index(wl), best])
+        for frac in (1.0, fraction):
+            est = dcim_serving_bound(gemms, wall, workload=wl,
+                                     macro=rg.designs[best],
+                                     kernel_fraction=frac)
+            check(np.isfinite(est.tokens_per_s) and est.tokens_per_s > 0,
+                  f"serving: {wl}: no finite throughput")
+            log(f"serving: {wl} on {rg.designs[best]} at kernel_fraction "
+                f"{frac!r}: t_macro {est.t_macro_s!r} s, t_hbm "
+                f"{est.t_hbm_s!r} s, {est.tokens_per_s!r} tokens/s, "
+                f"{est.bottleneck}")
+
+
 def main() -> int:
     import torch
 
@@ -970,9 +1271,15 @@ def main() -> int:
     t5 = time.perf_counter()
     phase_autotune()
     t6 = time.perf_counter()
+    skeletons, artifact = phase_profile(wk)
+    kernels += skeletons
+    t7 = time.perf_counter()
+    phase_serving(chosen["results"], artifact)
+    t8 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"mac {t3 - t2:.3f} s, csa {t4 - t3:.3f} s, ssm {t5 - t4:.3f} s, "
-        f"autotune {t6 - t5:.3f} s")
+        f"autotune {t6 - t5:.3f} s, profile {t7 - t6:.3f} s, serving "
+        f"{t8 - t7:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

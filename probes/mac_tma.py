@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Probe of the ``dcim_mac`` kernels (``csrc/dcim_mac.cu``) on one card.
 
-    python3 probes/mac_tma.py [--check | --diag | --trace | --variants
-                               [--only NAME,...]]
+    python3 probes/mac_tma.py [--check | --diag | --trace | --sweep |
+                               --variants [--only NAME,...]]
 
 Every mode first prints the card's name and power limit, the toolchain,
 each kernel's registers and spill bytes and whether ptxas serialized its
@@ -22,6 +22,10 @@ times; "warm": back to back):
     (descriptor encoding included);
   * ``--diag`` the three clocks (flushed, warm, the profiler's kernel
     duration) on the six GEMMs;
+  * ``--sweep`` the two routes below one ``wgmma`` tile of tokens (M = 1,
+    8, 16, 32, 48, 63) at the six qwen3-4b (K, N) pairs, each at its
+    planned split, every output equal to the plain version: where the TMA
+    route wins at every pair is where ``plan.TMA_MIN_ROWS`` may go;
   * ``--trace`` the kernel's text with clock64 stamps inserted
     (``traced_text``): per stage of block (0, 0, 0), each role's waits
     (the instrumentation itself costs hundreds of cycles an event);
@@ -203,6 +207,41 @@ def timings() -> None:
         log(f"host: one {route} call (64x128x128) {host:.3f} us")
 
 
+#: Token counts of the --sweep, all below one wgmma tile.
+SWEEP_ROWS = (1, 8, 16, 32, 48, 63)
+
+
+def sweep() -> None:
+    import torch
+    from repro_torch.kernels.dcim_mac import mac_plan, ref
+
+    rng = np.random.default_rng(0)
+    wins = {m: True for m in SWEEP_ROWS}
+    for name, _, k, n in QWEN:
+        w = torch.as_tensor(rng.integers(-128, 128, (k, n), dtype=np.int8),
+                            device="cuda")
+        for m in SWEEP_ROWS:
+            a = torch.as_tensor(rng.integers(-128, 128, (m, k),
+                                             dtype=np.int8), device="cuda")
+            want = ref.dcim_matmul_int_ref(a, w)
+            out = torch.empty_like(want)
+            s = mac_plan(m, k, n).splits
+            for route in ("grid", "pipelined"):
+                launch(route, a, w, out, 4, s)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise RuntimeError(f"sweep {name} M={m} {route}: differs "
+                                       "from the plain version")
+            tg = time_ms(lambda: launch("grid", a, w, out))
+            tt = time_ms(lambda: launch("pipelined", a, w, out, 4, s))
+            wins[m] &= tt < tg
+            log(f"sweep {name} M={m} (K {k}, N {n}): grid {tg:.6f} ms, "
+                f"pipelined (S={s}, depth 4) {tt:.6f} ms, "
+                f"{'pipelined' if tt < tg else 'grid'} faster")
+    log("sweep: the TMA route faster at every pair for M in "
+        f"{[m for m, won in wins.items() if won]}")
+
+
 def warm_ms(fn, reps: int = 50) -> float:
     """Mean device time of ``fn()`` launched back to back, L2 warm."""
     import torch
@@ -273,7 +312,7 @@ __device__ unsigned long long* g_trace;
 _TRACE_POINTS = (  # (after this line, the event)
     ("                     n0, (t_begin + tw) * BK);\n",
      "            TRACE(0, tw);\n"),
-    ("    mbar_wait(a_full0 + 8 * s, (t / DEPTH) & 1);\n",
+    ("    mbar_wait(a_full0 + 8 * s, MODE == COMPUTE ? 0 : (t / DEPTH) & 1);\n",
      "    if (threadIdx.x == 128) TRACE(1, t);\n"),
     ("    mbar_wait(wt_full0 + 8 * b, (t / WT_BUFS) & 1);\n",
      "    if (threadIdx.x == 128) TRACE(2, t);\n"),
@@ -281,7 +320,7 @@ _TRACE_POINTS = (  # (after this line, the event)
      "    }\n", "    if (threadIdx.x == 128) TRACE(3, t);\n"),
     ("          mbar_wait(wt_empty0 + 8 * b, ((t / WT_BUFS) & 1) ^ 1);\n",
      "        if (tid == 32) TRACE(4, t);\n"),
-    ("        mbar_arrive(w_empty0 + 8 * s);\n",
+    ("        if constexpr (MODE != COMPUTE) mbar_arrive(w_empty0 + 8 * s);\n",
      "        if (tid == 32) TRACE(5, t);\n"),
     ("            wt + b * W_STAGE, warp - 1, lane, rot);\n",
      "        if (tid == 32) TRACE(6, t);\n"),
@@ -363,8 +402,8 @@ _W_MAP = "!make_map(&w_map, w, K, N, BK, BN, CU_TENSOR_MAP_SWIZZLE_128B)"
 _A_MAP = "!make_map(&a_map, a, M, K, BM, BK, CU_TENSOR_MAP_SWIZZLE_128B)"
 _NO_TRANSPOSE = [("        transpose_stage(\n",
                   "        if (false) transpose_stage(\n")]
-_NO_WGMMA = [("    if (m0 + row0 + 64 < M)\n", "    if (false)\n"),
-             ("    else if (m0 + row0 < M)\n", "    else if (false)\n")]
+_NO_WGMMA = [("    } else if (m0 + row0 + 64 < M) {\n", "    } else if (false) {\n"),
+             ("    } else if (m0 + row0 < M) {\n", "    } else if (false) {\n")]
 _NO_W_LOADS = [("            mbar_expect_tx(bar, W_STAGE);\n" + _W_LOAD,
                 "            mbar_arrive(bar);")]
 _NO_A_LOADS = [("            mbar_expect_tx(bar, A_STAGE);\n" + _A_LOAD,
@@ -435,7 +474,8 @@ def _blocking_producer(text: str) -> list[tuple[str, str]]:
     """The producer waits for each buffer in stage order instead of
     polling both rings."""
     i0 = text.index("        int ta = 0, tw = 0;\n")
-    i1 = text.index("      }\n    } else {\n      // transposers")
+    i1 = text.index("      }\n    } else if constexpr (MODE != COPY) {\n"
+                    "      // transposers")
     return [(text[i0:i1], """        for (int t = 0; t < T; ++t) {
           const int sw = t % W_BUFS, sa = t % DEPTH;
           if (t >= W_BUFS)
@@ -539,6 +579,7 @@ def main() -> int:
     ap.add_argument("--diag", action="store_true")
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--only", default="",
                     help="comma-separated VARIANTS names for --variants")
     args = ap.parse_args()
@@ -560,6 +601,8 @@ def main() -> int:
         trace()
     elif args.diag:
         diag()
+    elif args.sweep:
+        sweep()
     elif not args.check:
         timings()
     return 0

@@ -66,8 +66,8 @@ def variants() -> dict[str, str]:
     text = (CSRC / "ssm_scan.cu").read_text()
     stream = patched(text, [(PDL, "cfg.numAttrs = 0;", 1)])
     wait = patched(text, [(CARRY, "{ if (chunk > 0) wait_for_primary_grid(); "
-                                  "h = h0[d]; }", 2)])
-    no_carry = patched(text, [(CARRY, "h = h0[d];", 2)])
+                                  "h = h0[d]; }", 1)])
+    no_carry = patched(text, [(CARRY, "h = h0[d];", 1)])
     return {"pdl": text, "stream": stream, "wait": wait,
             "no carry": no_carry}
 

@@ -13,7 +13,7 @@ in the JAX package's ``repro.core``:
   engine      unified execution engine: plan -> place -> execute -> extract
   multispec   N specs in one spec-stacked pass
   macro       spec -> design -> PPA roll-up (+ silicon calibration)
-  dse         the GEMM inventory of a model (the macro's workload)
+  dse         system-level workload -> macro-array mapping, co-design
 """
 
 from .axes import LatticeConfig
@@ -21,7 +21,10 @@ from .batched import (BatchedPPA, BatchedSweep, DesignLattice, SpecTables,
                       design_space_sweep, evaluate, mso_search_batched,
                       pareto_mask)
 from .csa import CSADesign, CSAReport, FAMILY, build_netlist, characterize
-from .dse import GemmShape, gemm_inventory
+from .dse import (AcceleratorReport, CodesignReport, GemmShape,
+                  WorkloadMatrix, accelerator_report,
+                  batched_workload_matrix, cross_workload_codesign,
+                  gemm_inventory, map_gemm)
 from .engine import (ExecutionPlan, PackedGroup, Placement, Strategy,
                      execute, extract_frontier, register_strategy)
 from .macro import (MacroDesign, MacroPPA, MacroSpec, at_voltage,
@@ -44,7 +47,9 @@ __all__ = [
     "BatchedPPA", "BatchedSweep", "DesignLattice", "SpecTables",
     "design_space_sweep", "evaluate", "mso_search_batched", "pareto_mask",
     "CSADesign", "CSAReport", "FAMILY", "build_netlist", "characterize",
-    "GemmShape", "gemm_inventory",
+    "AcceleratorReport", "CodesignReport", "GemmShape", "WorkloadMatrix",
+    "accelerator_report", "batched_workload_matrix",
+    "cross_workload_codesign", "gemm_inventory", "map_gemm",
     "ExecutionPlan", "PackedGroup", "Placement", "Strategy", "execute",
     "extract_frontier", "register_strategy",
     "MacroDesign", "MacroPPA", "MacroSpec", "at_voltage",

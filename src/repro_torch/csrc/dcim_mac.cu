@@ -87,10 +87,29 @@
 // cudaGetDriverEntryPoint so that no -lcuda is needed, and passed as
 // __grid_constant__ parameters.
 //
-// The grid kernel (dcim_mac_grid_kernel) takes what TMA
-// cannot describe: rows whose byte length is not a multiple of 16, an
-// operand that does not start on a 16-byte boundary, and strips shorter
-// than one wgmma tile (64 tokens).  One block of 4 warps computes a 64 x
+// Profiling skeletons (kernels/profile.py; the TPU kernel's _mode of
+// _pipelined_mac_body, dcim_matmul_int_pipelined_pallas): the TMA kernel's
+// MODE template parameter, int32 output only, compiled with -DSKELETONS
+// into a library of their own (kernels/build.py) so that the main path's
+// build is unchanged.  Both keep the plan, the clusters, the K-split DSMEM
+// reduction and the store of the fused kernel (FUSED); what each computes
+// is its data token, defined by its plain version in
+// kernels/dcim_mac/ref.py:
+//   COPY     the producer streams every stage of both rings as the fused
+//            kernel does; the consumers wait on each stage's full barriers
+//            and release it at once (no transposes, no wgmma), adding the
+//            stage's first A word and first W word to a token that stands
+//            in for every accumulator.  No setmaxnreg: nothing needs 200
+//            registers, and the entry count need not be the 168 that the
+//            budget assumes.
+//   COMPUTE  the producer loads the split's first stage once; the
+//            transposers and the consumers run every stage's transpose and
+//            wgmma on it, so a split of n stages computes n times that
+//            stage's product.
+//
+// The grid kernel (dcim_mac_grid_kernel) takes what TMA cannot describe:
+// rows whose byte length is not a multiple of 16, and an operand that does
+// not start on a 16-byte boundary.  One block of 4 warps computes a 64 x
 // 64 tile with mma.sync m16n8k32 s8.s8.s32; it stages 128-deep K slices
 // in swizzled shared memory (W transposed on the way in with __byte_perm)
 // with a one-stage register prefetch, and reads bytes past the ragged
@@ -104,6 +123,9 @@
 namespace {
 
 enum OutKind { OUT_I32 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
+
+// The TMA kernel's modes: the product, and its two profiling skeletons.
+enum Mode { FUSED = 0, COPY = 1, COMPUTE = 2 };
 
 // Two adjacent outputs (m, n) and (m, n + 1) of a row-major (M, N) output.
 template <int KIND>
@@ -348,16 +370,17 @@ __device__ __forceinline__ void transpose_stage(const uint32_t* __restrict__ raw
 // A consumer warpgroup's walk over its T stages: `a` is its first token's
 // row in A buffer 0, TILES (0, 1 or 2) of its two m64 tiles hold tokens
 // < M.  The caller branches on TILES outside the loop: a wgmma under a
-// branch inside it would make ptxas serialize the wgmma pipeline.
-template <int TILES, int DEPTH>
+// branch inside it would make ptxas serialize the wgmma pipeline.  In
+// COMPUTE mode every stage reads A buffer 0, which is never released.
+template <int TILES, int DEPTH, int MODE>
 __device__ __forceinline__ void consume(int (&acc0)[ACC], int (&acc1)[ACC],
                                         int T, const uint8_t* a,
                                         const uint8_t* wt, uint32_t a_full0,
                                         uint32_t a_empty0, uint32_t wt_full0,
                                         uint32_t wt_empty0) {
   for (int t = 0; t < T; ++t) {
-    const int s = t % DEPTH, b = t % WT_BUFS;
-    mbar_wait(a_full0 + 8 * s, (t / DEPTH) & 1);
+    const int s = MODE == COMPUTE ? 0 : t % DEPTH, b = t % WT_BUFS;
+    mbar_wait(a_full0 + 8 * s, MODE == COMPUTE ? 0 : (t / DEPTH) & 1);
     mbar_wait(wt_full0 + 8 * b, (t / WT_BUFS) & 1);
     if constexpr (TILES > 0) {
       const uint32_t a_s = smem_u32(a + s * A_STAGE);
@@ -379,7 +402,8 @@ __device__ __forceinline__ void consume(int (&acc0)[ACC], int (&acc1)[ACC],
       fence_acc(acc1);
     }
     if (t > 0) {
-      mbar_arrive(a_empty0 + 8 * ((t - 1) % DEPTH));
+      if constexpr (MODE != COMPUTE)
+        mbar_arrive(a_empty0 + 8 * ((t - 1) % DEPTH));
       mbar_arrive(wt_empty0 + 8 * ((t - 1) % WT_BUFS));
     }
   }
@@ -388,6 +412,31 @@ __device__ __forceinline__ void consume(int (&acc0)[ACC], int (&acc1)[ACC],
     fence_acc(acc0);
     fence_acc(acc1);
   }
+}
+
+// COPY mode: the consumers' walk over the T stages of both rings.  Each
+// stage is released as soon as it has landed; the token is the sum, mod
+// 2^32, of each stage's first A word and first W word (row 0, 16-byte
+// chunk 0 of a swizzled box stays in place: bytes A[m0][k0..k0+3] and
+// W[k0][n0..n0+3], little-endian).
+template <int DEPTH>
+__device__ __forceinline__ uint32_t copy_stages(int T, const uint8_t* a_ring,
+                                                const uint8_t* w_ring,
+                                                uint32_t a_full0,
+                                                uint32_t a_empty0,
+                                                uint32_t w_full0,
+                                                uint32_t w_empty0) {
+  uint32_t token = 0;
+  for (int t = 0; t < T; ++t) {
+    const int s = t % DEPTH, b = t % W_BUFS;
+    mbar_wait(a_full0 + 8 * s, (t / DEPTH) & 1);
+    mbar_wait(w_full0 + 8 * b, (t / W_BUFS) & 1);
+    token += *reinterpret_cast<const uint32_t*>(a_ring + s * A_STAGE) +
+             *reinterpret_cast<const uint32_t*>(w_ring + b * W_STAGE);
+    mbar_arrive(a_empty0 + 8 * s);
+    mbar_arrive(w_empty0 + 8 * b);
+  }
+  return token;
 }
 
 // One m64n128 accumulator tile of a consumer thread, rows from `row`.
@@ -412,7 +461,7 @@ __device__ __forceinline__ void store_tile(const int (&d)[ACC], void* out,
   }
 }
 
-template <int KIND, int DEPTH>
+template <int KIND, int DEPTH, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 dcim_mac_tma_kernel(const __grid_constant__ CUtensorMap a_map,
                     const __grid_constant__ CUtensorMap w_map,
@@ -449,7 +498,9 @@ dcim_mac_tma_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
     for (int b = 0; b < W_BUFS; ++b) {
       mbar_init(w_full0 + 8 * b, 1);
-      mbar_init(w_empty0 + 8 * b, TRANSPOSERS);
+      // COPY: the consumers release raw W stages, not the transposers
+      mbar_init(w_empty0 + 8 * b,
+                MODE == COPY ? CONSUMER_THREADS : TRANSPOSERS);
     }
 #pragma unroll
     for (int b = 0; b < WT_BUFS; ++b) {
@@ -461,11 +512,18 @@ dcim_mac_tma_kernel(const __grid_constant__ CUtensorMap a_map,
   __syncthreads();
 
   if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n");
+    if constexpr (MODE != COPY)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 96;\n");
     if (warp == 0) {
       // producer: one thread issues each stage's A and W loads as soon as
-      // their buffers are free, the two rings independently
-      if (lane == 0) {
+      // their buffers are free, the two rings independently (COMPUTE: the
+      // split's first stage, once)
+      if (lane == 0 && MODE == COMPUTE) {
+        mbar_expect_tx(w_full0, W_STAGE);
+        tma_load(smem_u32(w_ring), &w_map, w_full0, n0, t_begin * BK);
+        mbar_expect_tx(a_full0, A_STAGE);
+        tma_load(smem_u32(a_ring), &a_map, a_full0, t_begin * BK, m0);
+      } else if (lane == 0) {
         int ta = 0, tw = 0;
         while (ta < T || tw < T) {
           if (tw < T && (tw < W_BUFS ||
@@ -488,14 +546,15 @@ dcim_mac_tma_kernel(const __grid_constant__ CUtensorMap a_map,
           }
         }
       }
-    } else {
-      // transposers: raw W buffer t % W_BUFS -> K-major buffer t % WT_BUFS
+    } else if constexpr (MODE != COPY) {
+      // transposers: raw W buffer t % W_BUFS (COMPUTE: buffer 0, never
+      // released) -> K-major buffer t % WT_BUFS
       const int q = (lane >> 1) & 3;
       const uint32_t rot = q | ((q + 1) & 3) << 4 | ((q + 2) & 3) << 8 |
                            ((q + 3) & 3) << 12;
       for (int t = 0; t < T; ++t) {
-        const int s = t % W_BUFS, b = t % WT_BUFS;
-        mbar_wait(w_full0 + 8 * s, (t / W_BUFS) & 1);
+        const int s = MODE == COMPUTE ? 0 : t % W_BUFS, b = t % WT_BUFS;
+        mbar_wait(w_full0 + 8 * s, MODE == COMPUTE ? 0 : (t / W_BUFS) & 1);
         if (t >= WT_BUFS)
           mbar_wait(wt_empty0 + 8 * b, ((t / WT_BUFS) & 1) ^ 1);
         transpose_stage(
@@ -504,25 +563,32 @@ dcim_mac_tma_kernel(const __grid_constant__ CUtensorMap a_map,
         // the generic-proxy stores must be visible to wgmma's async proxy
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         mbar_arrive(wt_full0 + 8 * b);
-        mbar_arrive(w_empty0 + 8 * s);
+        if constexpr (MODE != COMPUTE) mbar_arrive(w_empty0 + 8 * s);
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
+    if constexpr (MODE != COPY)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
     const int row0 = (wg - 1) * 128;          // this warpgroup's tokens
     int acc0[ACC], acc1[ACC];
 #pragma unroll
     for (int i = 0; i < ACC; ++i) acc0[i] = acc1[i] = 0;
-    // how many of the warpgroup's two m64 tiles hold tokens < M
-    if (m0 + row0 + 64 < M)
-      consume<2, DEPTH>(acc0, acc1, T, a_ring + row0 * BK, wt, a_full0,
-                        a_empty0, wt_full0, wt_empty0);
-    else if (m0 + row0 < M)
-      consume<1, DEPTH>(acc0, acc1, T, a_ring + row0 * BK, wt, a_full0,
-                        a_empty0, wt_full0, wt_empty0);
-    else
-      consume<0, DEPTH>(acc0, acc1, T, a_ring + row0 * BK, wt, a_full0,
-                        a_empty0, wt_full0, wt_empty0);
+    if constexpr (MODE == COPY) {
+      const int token = (int)copy_stages<DEPTH>(T, a_ring, w_ring, a_full0,
+                                                a_empty0, w_full0, w_empty0);
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc0[i] = acc1[i] = token;
+    } else if (m0 + row0 + 64 < M) {
+      // how many of the warpgroup's two m64 tiles hold tokens < M
+      consume<2, DEPTH, MODE>(acc0, acc1, T, a_ring + row0 * BK, wt, a_full0,
+                              a_empty0, wt_full0, wt_empty0);
+    } else if (m0 + row0 < M) {
+      consume<1, DEPTH, MODE>(acc0, acc1, T, a_ring + row0 * BK, wt, a_full0,
+                              a_empty0, wt_full0, wt_empty0);
+    } else {
+      consume<0, DEPTH, MODE>(acc0, acc1, T, a_ring + row0 * BK, wt, a_full0,
+                              a_empty0, wt_full0, wt_empty0);
+    }
 
     if (splits == 1) {
       store_tile<KIND>(acc0, out, a_scale, w_scale, M, N, m0 + row0, n0);
@@ -648,11 +714,11 @@ cudaLaunchConfig_t launch_config(int depth, int M, int N, int splits,
   return cfg;
 }
 
-template <int KIND, int DEPTH>
+template <int KIND, int DEPTH, int MODE>
 int launch(const void* a, const void* w, const void* a_scale,
            const void* w_scale, void* out, int M, int K, int N, int splits,
            cudaStream_t stream) {
-  auto kernel = dcim_mac_tma_kernel<KIND, DEPTH>;
+  auto kernel = dcim_mac_tma_kernel<KIND, DEPTH, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes(DEPTH));
@@ -672,17 +738,17 @@ int launch(const void* a, const void* w, const void* a_scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KIND>
+template <int KIND, int MODE>
 int launch_depth(const void* a, const void* w, const void* a_scale,
                  const void* w_scale, void* out, int M, int K, int N,
                  int depth, int splits, cudaStream_t stream) {
   switch (depth) {
-    case 2: return launch<KIND, 2>(a, w, a_scale, w_scale, out, M, K, N,
-                                   splits, stream);
-    case 3: return launch<KIND, 3>(a, w, a_scale, w_scale, out, M, K, N,
-                                   splits, stream);
-    case 4: return launch<KIND, 4>(a, w, a_scale, w_scale, out, M, K, N,
-                                   splits, stream);
+    case 2: return launch<KIND, 2, MODE>(a, w, a_scale, w_scale, out, M, K,
+                                         N, splits, stream);
+    case 3: return launch<KIND, 3, MODE>(a, w, a_scale, w_scale, out, M, K,
+                                         N, splits, stream);
+    case 4: return launch<KIND, 4, MODE>(a, w, a_scale, w_scale, out, M, K,
+                                         N, splits, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -893,6 +959,29 @@ int launch(const void* a, const void* w, const void* a_scale,
 
 extern "C" {
 
+#ifdef SKELETONS
+
+// The TMA kernel's profiling skeleton `mode` (1 COPY, 2 COMPUTE) of the
+// int32 product of (M,K) int8 and (K,N) int8 on `stream`, with the
+// arguments of dcim_mac_tma: its data token into `out` (M,N) int32.
+// Returns the CUDA error code of the launch (0 on success).
+int dcim_mac_tma_skeleton(const void* a, const void* w, void* out, int M,
+                          int K, int N, int mode, int depth, int splits,
+                          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case COPY:
+      return tma::launch_depth<OUT_I32, COPY>(a, w, nullptr, nullptr, out, M,
+                                              K, N, depth, splits, s);
+    case COMPUTE:
+      return tma::launch_depth<OUT_I32, COMPUTE>(a, w, nullptr, nullptr, out,
+                                                 M, K, N, depth, splits, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#else
+
 // (M,K) int8 @ (K,N) int8 on `stream` by the TMA / wgmma kernel (route
 // `pipelined`): `kind` 0 stores int32, 1 float32 and 2 bfloat16 through
 // the dequant epilogue (a_scale M floats, w_scale N floats; unused for
@@ -905,12 +994,15 @@ int dcim_mac_tma(const void* a, const void* w, const void* a_scale,
                  int kind, int depth, int splits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
-    case 0: return tma::launch_depth<OUT_I32>(a, w, a_scale, w_scale, out, M,
-                                              K, N, depth, splits, s);
-    case 1: return tma::launch_depth<OUT_F32>(a, w, a_scale, w_scale, out, M,
-                                              K, N, depth, splits, s);
-    case 2: return tma::launch_depth<OUT_BF16>(a, w, a_scale, w_scale, out, M,
-                                               K, N, depth, splits, s);
+    case 0: return tma::launch_depth<OUT_I32, FUSED>(a, w, a_scale, w_scale,
+                                                     out, M, K, N, depth,
+                                                     splits, s);
+    case 1: return tma::launch_depth<OUT_F32, FUSED>(a, w, a_scale, w_scale,
+                                                     out, M, K, N, depth,
+                                                     splits, s);
+    case 2: return tma::launch_depth<OUT_BF16, FUSED>(a, w, a_scale, w_scale,
+                                                      out, M, K, N, depth,
+                                                      splits, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -946,7 +1038,7 @@ int dcim_mac_tma_max_clusters(int depth, int splits, int* count) {
   switch (depth) {
 #define DCIM_MAC_CLUSTERS(D)                                                 \
   case D: {                                                                  \
-    auto kernel = tma::dcim_mac_tma_kernel<OUT_I32, D>;                      \
+    auto kernel = tma::dcim_mac_tma_kernel<OUT_I32, D, FUSED>;               \
     err = cudaFuncSetAttribute(kernel,                                       \
                                cudaFuncAttributeMaxDynamicSharedMemorySize,  \
                                tma::smem_bytes(D));                          \
@@ -961,6 +1053,8 @@ int dcim_mac_tma_max_clusters(int depth, int splits, int* count) {
   }
   return static_cast<int>(err);
 }
+
+#endif  // SKELETONS
 
 const char* dcim_mac_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

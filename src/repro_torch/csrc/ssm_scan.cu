@@ -53,6 +53,21 @@
 //                                thread, so the TPU's output staging ring
 //                                has no counterpart.
 //
+// Profiling skeletons (kernels/profile.py; the TPU kernel's _mode of
+// _scan_pipelined_kernel): scan_kernel's MODE template parameter, at every
+// depth, compiled with -DSKELETONS into a library of their own
+// (kernels/build.py) so that the main path's build is unchanged.  Each
+// computes a data token defined by its plain version in
+// kernels/ssm_scan/ref.py:
+//   COPY     the same launches, loads and stores, no recurrence: every
+//            state is __fadd_rn(a, b); launch 2 skips pass 2 but waits for
+//            launch 1 where pass 2 would; the final state follows the TPU
+//            kernel's rule at the tile's bt: the last state if bt does not
+//            divide T, else h0 (the TPU copy skeleton never moves h).
+//   COMPUTE  the recurrence on resident data: each chunk's first
+//            sub-chunk is loaded once and every sub-chunk's walk (passes
+//            1-3) reads it; no state is written, the final state is.
+//
 // Bound on the H100 SXM: 12 bytes per element (a and b read, the state
 // written) at 3.35 TB/s against 2 float operations at 67 TFLOP/s: bytes
 // bound it.  Pass 3 reads a and b a second time; at D = 256 they are a few
@@ -64,6 +79,9 @@
 #include <stdint.h>
 
 namespace {
+
+// scan_kernel's modes: the scan, and its two profiling skeletons.
+enum Mode { FUSED = 0, COPY = 1, COMPUTE = 2 };
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -122,8 +140,9 @@ __device__ __forceinline__ float carry_in(const float* summary,
 
 // One staged sub-chunk of `rows` rows from slot `buf` ([a|b][bt][B]),
 // starting at row `row0`: advances the state h and, for a summary, the
-// decay product; otherwise writes the states.
-template <bool kSummary>
+// decay product; otherwise writes the states (COMPUTE: none).  COPY: h
+// is each row's a + b, written as its state.
+template <bool kSummary, int MODE>
 __device__ __forceinline__ void scan_rows(const float* buf, int bt, int B,
                                           int t, float& h, float& prod,
                                           float* states, size_t row0,
@@ -133,9 +152,13 @@ __device__ __forceinline__ void scan_rows(const float* buf, int bt, int B,
   const float* sb = buf + (size_t)bt * B;
   for (int r = 0; r < rows; ++r) {
     const float av = sa[r * B + t];
-    if constexpr (kSummary) prod = __fmul_rn(av, prod);
-    h = __fadd_rn(__fmul_rn(av, h), sb[r * B + t]);
-    if constexpr (!kSummary) {
+    if constexpr (MODE == COPY) {
+      h = __fadd_rn(av, sb[r * B + t]);
+    } else {
+      if constexpr (kSummary) prod = __fmul_rn(av, prod);
+      h = __fadd_rn(__fmul_rn(av, h), sb[r * B + t]);
+    }
+    if constexpr (!kSummary && MODE != COMPUTE) {
       if (active) states[(row0 + r) * D + d] = h;
     }
   }
@@ -147,12 +170,13 @@ __device__ __forceinline__ void scan_rows(const float* buf, int bt, int B,
 //   launch 2: out = states (T, D); h starts at carry_in (h0 for chunk 0),
 //             summary is launch 1's (gridDim.y - 1 chunks); the last
 //             chunk writes final_state.
-template <int DEPTH, bool kSummary>
+// `copy_last` (COPY only): the final state is the last state, not h0.
+template <int DEPTH, bool kSummary, int MODE>
 __global__ void __launch_bounds__(1024)
 scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
             const float* __restrict__ h0, const float* summary,
             float* __restrict__ out, float* __restrict__ final_state, int T,
-            int D, int bt, int L) {
+            int D, int bt, int L, int copy_last) {
   extern __shared__ float smem[];  // [DEPTH][2][bt][blockDim.x]
   const int B = blockDim.x;
   const int t = threadIdx.x;
@@ -166,10 +190,35 @@ scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
   float prod = 1.f;
   float h = 0.f;
   if constexpr (kSummary) allow_dependent_grid();
+  // Launch 2 enters its chunk with the carry of pass 2; the copy skeleton
+  // only waits for launch 1 where pass 2 would.
+  auto enter = [&] {
+    if constexpr (!kSummary) {
+      if constexpr (MODE == COPY) {
+        if (chunk > 0) wait_for_primary_grid();
+      } else if (active) {
+        h = carry_in(summary, h0, chunk, gridDim.y - 1, D, d);
+      }
+    }
+  };
 
-  if constexpr (DEPTH == 1) {
-    if (!kSummary && active)
-      h = carry_in(summary, h0, chunk, gridDim.y - 1, D, d);
+  if constexpr (MODE == COMPUTE) {
+    // one load: the chunk's first sub-chunk, which every sub-chunk's walk
+    // then reads
+    if (active) {
+      for (int r = 0; r < min(bt, rows_c); ++r) {
+        const size_t g = (r0 + r) * D + d;
+        smem[r * B + t] = a[g];
+        smem[(size_t)bt * B + r * B + t] = b[g];
+      }
+    }
+    enter();
+    for (int c = 0; c < n_sub; ++c)
+      scan_rows<kSummary, MODE>(smem, bt, B, t, h, prod, out,
+                                r0 + (size_t)c * bt,
+                                min(bt, rows_c - c * bt), D, d, active);
+  } else if constexpr (DEPTH == 1) {
+    enter();
     for (int c = 0; c < n_sub; ++c) {
       const int rows = min(bt, rows_c - c * bt);
       if (active) {
@@ -179,8 +228,8 @@ scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
           smem[(size_t)bt * B + r * B + t] = b[g];
         }
       }
-      scan_rows<kSummary>(smem, bt, B, t, h, prod, out,
-                          r0 + (size_t)c * bt, rows, D, d, active);
+      scan_rows<kSummary, MODE>(smem, bt, B, t, h, prod, out,
+                                r0 + (size_t)c * bt, rows, D, d, active);
     }
   } else {
     // Sub-chunk c goes to slot c % DEPTH; every iteration commits one
@@ -199,14 +248,13 @@ scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
       cp_async_commit();
     };
     for (int c = 0; c < DEPTH; ++c) fetch(c);
-    if (!kSummary && active)
-      h = carry_in(summary, h0, chunk, gridDim.y - 1, D, d);
+    enter();
     for (int c = 0; c < n_sub; ++c) {
       cp_async_wait<DEPTH - 1>();
       const int rows = min(bt, rows_c - c * bt);
-      scan_rows<kSummary>(smem + (size_t)(c % DEPTH) * slot, bt, B, t, h,
-                          prod, out, r0 + (size_t)c * bt, rows, D, d,
-                          active);
+      scan_rows<kSummary, MODE>(smem + (size_t)(c % DEPTH) * slot, bt, B, t,
+                                h, prod, out, r0 + (size_t)c * bt, rows, D,
+                                d, active);
       // The slot just read is refilled with sub-chunk c + DEPTH.  Its
       // reads came first; the warp barrier orders them before the copy.
       __syncwarp();
@@ -219,12 +267,12 @@ scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
     out[(size_t)chunk * D + d] = prod;
     out[((size_t)gridDim.y + chunk) * D + d] = h;
   } else if (chunk == (int)gridDim.y - 1) {
-    final_state[d] = h;
+    final_state[d] = MODE == COPY && !copy_last ? h0[d] : h;
   }
 }
 
 // One launch: launch 1 (kSummary) or launch 2 at depth DEPTH.
-template <int DEPTH, bool kSummary>
+template <int DEPTH, bool kSummary, int MODE>
 int launch(const float* a, const float* b, const float* h0,
            const float* summary, float* out, float* final_state, int T,
            int D, int bt, int bd, int S, int L, cudaStream_t stream) {
@@ -233,7 +281,7 @@ int launch(const float* a, const float* b, const float* h0,
   const size_t smem = sizeof(float) * 2 * DEPTH * (size_t)sub * bd;
   const dim3 grid((D + bd - 1) / bd, kSummary ? S - 1 : S);
   cudaError_t err = cudaFuncSetAttribute(
-      scan_kernel<DEPTH, kSummary>,
+      scan_kernel<DEPTH, kSummary, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // Launch 2 after launch 1 (S > 1) may start while launch 1 runs;
@@ -248,13 +296,14 @@ int launch(const float* a, const float* b, const float* h0,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = !kSummary && S > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, scan_kernel<DEPTH, kSummary>, a, b, h0,
-                           summary, out, final_state, T, D, sub, L);
+  err = cudaLaunchKernelEx(&cfg, scan_kernel<DEPTH, kSummary, MODE>, a, b,
+                           h0, summary, out, final_state, T, D, sub, L,
+                           (int)(T % bt != 0));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kSummary>
+template <bool kSummary, int MODE>
 int launch_depth(int depth, const void* a, const void* b, const void* h0,
                  const void* summary, void* out, void* final_state, int T,
                  int D, int bt, int bd, int S, int L, void* stream) {
@@ -271,17 +320,17 @@ int launch_depth(int depth, const void* a, const void* b, const void* h0,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (depth) {
     case 1:
-      return launch<1, kSummary>(pa, pb, ph, pw, po, pf, T, D, bt, bd, S,
-                                 L, s);
+      return launch<1, kSummary, MODE>(pa, pb, ph, pw, po, pf, T, D, bt,
+                                       bd, S, L, s);
     case 2:
-      return launch<2, kSummary>(pa, pb, ph, pw, po, pf, T, D, bt, bd, S,
-                                 L, s);
+      return launch<2, kSummary, MODE>(pa, pb, ph, pw, po, pf, T, D, bt,
+                                       bd, S, L, s);
     case 3:
-      return launch<3, kSummary>(pa, pb, ph, pw, po, pf, T, D, bt, bd, S,
-                                 L, s);
+      return launch<3, kSummary, MODE>(pa, pb, ph, pw, po, pf, T, D, bt,
+                                       bd, S, L, s);
     case 4:
-      return launch<4, kSummary>(pa, pb, ph, pw, po, pf, T, D, bt, bd, S,
-                                 L, s);
+      return launch<4, kSummary, MODE>(pa, pb, ph, pw, po, pf, T, D, bt,
+                                       bd, S, L, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -297,13 +346,53 @@ extern "C" {
 // returns its CUDA error code (0 on success; cudaErrorInvalidValue for
 // another depth or an inconsistent split).
 
+#ifdef SKELETONS
+
+// The profiling skeleton `mode` (1 COPY, 2 COMPUTE) of launch 1 and of
+// launch 2, with the arguments of ssm_scan_summary and ssm_scan_states
+// (COMPUTE writes no states).
+int ssm_scan_skeleton_summary(int mode, const void* a, const void* b,
+                              void* summary, int T, int D, int bt, int bd,
+                              int depth, int S, int L, void* stream) {
+  switch (mode) {
+    case COPY:
+      return launch_depth<true, COPY>(depth, a, b, nullptr, nullptr, summary,
+                                      nullptr, T, D, bt, bd, S, L, stream);
+    case COMPUTE:
+      return launch_depth<true, COMPUTE>(depth, a, b, nullptr, nullptr,
+                                         summary, nullptr, T, D, bt, bd, S,
+                                         L, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int ssm_scan_skeleton_states(int mode, const void* a, const void* b,
+                             const void* h0, const void* summary,
+                             void* states, void* final_state, int T, int D,
+                             int bt, int bd, int depth, int S, int L,
+                             void* stream) {
+  switch (mode) {
+    case COPY:
+      return launch_depth<false, COPY>(depth, a, b, h0, summary, states,
+                                       final_state, T, D, bt, bd, S, L,
+                                       stream);
+    case COMPUTE:
+      return launch_depth<false, COMPUTE>(depth, a, b, h0, summary, states,
+                                          final_state, T, D, bt, bd, S, L,
+                                          stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+#else
+
 // Launch 1 (S > 1 only): the summaries of chunks 0..S-2 into `summary`,
 // 2 (S - 1) D floats.
 int ssm_scan_summary(const void* a, const void* b, void* summary, int T,
                      int D, int bt, int bd, int depth, int S, int L,
                      void* stream) {
-  return launch_depth<true>(depth, a, b, nullptr, nullptr, summary, nullptr,
-                            T, D, bt, bd, S, L, stream);
+  return launch_depth<true, FUSED>(depth, a, b, nullptr, nullptr, summary,
+                                   nullptr, T, D, bt, bd, S, L, stream);
 }
 
 // Launch 2: states (T, D) and final (D,), from h0 and launch 1's
@@ -313,9 +402,11 @@ int ssm_scan_states(const void* a, const void* b, const void* h0,
                     const void* summary, void* states, void* final_state,
                     int T, int D, int bt, int bd, int depth, int S, int L,
                     void* stream) {
-  return launch_depth<false>(depth, a, b, h0, summary, states, final_state,
-                             T, D, bt, bd, S, L, stream);
+  return launch_depth<false, FUSED>(depth, a, b, h0, summary, states,
+                                    final_state, T, D, bt, bd, S, L, stream);
 }
+
+#endif  // SKELETONS
 
 const char* ssm_scan_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

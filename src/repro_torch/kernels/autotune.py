@@ -11,7 +11,8 @@ tuner
   2. runs every candidate through the kernel's public entry point against
      the plain version (a candidate past ``_MAX_ERR`` is disqualified,
      never timed);
-  3. times each survivor with CUDA events after a warm-up and scores it on
+  3. times each survivor (:func:`repro_torch.kernels.timing.times_ms`: CUDA
+     events, L2 flushed; the best of ``iters``) and scores it on
      ``(time_us, smem_bytes)``;
   4. extracts the frontier with :func:`repro_torch.core.pareto.
      pareto_indices` and picks its fastest member.
@@ -32,7 +33,6 @@ from __future__ import annotations
 
 import hashlib
 import json
-import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -42,6 +42,7 @@ from ..core.pareto import pareto_indices
 from ..device import resolve_device
 from .tiles import (DEFAULT_TILES, TileConfig, resolve_tile, shape_class,
                     smem_bytes, tile_space)
+from .timing import times_ms
 
 #: Schema tag of one persisted tile-winner payload.
 TILE_SCHEMA = "syndcim-kernel-tile/v1"
@@ -154,29 +155,6 @@ def _make_case(kernel: str, shape: tuple[int, ...], device: torch.device):
     return run, want.double().cpu().numpy()
 
 
-def _time_us(fn, iters: int, device: torch.device) -> float:
-    """Best of ``iters`` calls after a warm-up: CUDA events on the card,
-    the host clock on the CPU."""
-    fn()
-    if device.type != "cuda":
-        best = float("inf")
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn()
-            best = min(best, (time.perf_counter() - t0) * 1e6)
-        return best
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        times.append((start, end))
-    torch.cuda.synchronize(device)
-    return min(s.elapsed_time(e) for s, e in times) * 1e3
-
-
 def autotune(kernel: str, shape: tuple[int, ...], *, iters: int = 3,
              device=None, registry=None, memoize: bool = True) -> TuneResult:
     """Sweep the tile lattice for ``(kernel, shape)`` on ``device`` (None:
@@ -192,7 +170,8 @@ def autotune(kernel: str, shape: tuple[int, ...], *, iters: int = 3,
         out = run(cfg).double().cpu().numpy()
         err = float(np.max(np.abs(out - want))) if out.size else 0.0
         ok = err <= tol
-        t_us = _time_us(lambda: run(cfg), iters, dev) if ok else float("inf")
+        t_us = (min(times_ms(lambda: run(cfg), iters, dev)) * 1e3 if ok
+                else float("inf"))
         scores.append(CandidateScore(cfg, t_us, smem_bytes(kernel, cfg),
                                      err, ok))
     live = [i for i, s in enumerate(scores) if s.ok]

@@ -11,6 +11,11 @@ build is atomic (a temporary file renamed into place), so processes that
 race on it agree on the result.  ``nvcc``'s ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is kept beside the library
 as ``<name>.log``; :func:`ptxas_report` reads it.
+
+A source may also be built as the ``skeletons`` variant: compiled with
+``-DSKELETONS``, it holds its kernels' profiling skeletons
+(:mod:`repro_torch.kernels.profile`) in a library of its own, so that the
+main path's library and its build stay as they are.
 """
 
 from __future__ import annotations
@@ -31,6 +36,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: The variant of a source that holds its profiling skeletons, and the
+#: sources that have one.
+SKELETONS = "skeletons"
+SKELETON_SOURCES = ("dcim_mac", "ssm_scan")
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -43,20 +53,30 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for its current text."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+def _variant_flags(variant: str | None) -> tuple[str, ...]:
+    if variant not in (None, SKELETONS):
+        raise ValueError(f"unknown build variant {variant!r}")
+    return () if variant is None else (f"-D{variant.upper()}",)
 
 
-def _compile(src: Path, out: Path) -> Path:
+def library_path(name: str, variant: str | None = None) -> Path:
+    """Where the library of ``csrc/<name>.cu`` (or its ``variant``) lives
+    for its current text."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    stem = name if variant is None else f"{name}_{variant}"
+    digest = hashlib.sha256(text + " ".join(_variant_flags(variant))
+                            .encode()).hexdigest()
+    return BUILD_DIR / f"lib{stem}-{digest[:16]}.so"
+
+
+def _compile(src: Path, out: Path, flags: tuple[str, ...] = ()) -> Path:
     """nvcc ``src`` into ``out`` unless it is already built; the ptxas
     report goes beside it.  Raises with nvcc's output on failure."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -67,10 +87,11 @@ def _compile(src: Path, out: Path) -> Path:
     return out
 
 
-def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library is already built, and
-    return the library's path."""
-    return _compile(CSRC / f"{name}.cu", library_path(name))
+def build_library(name: str, variant: str | None = None) -> Path:
+    """Compile ``csrc/<name>.cu`` (as ``variant``, when one is given)
+    unless its library is already built, and return the library's path."""
+    return _compile(CSRC / f"{name}.cu", library_path(name, variant),
+                    _variant_flags(variant))
 
 
 def source_library_path(name: str, text: str) -> Path:

@@ -16,6 +16,13 @@ adds one to :data:`LAUNCHES` under that launch's key (``rows``,
 ``rows_tall`` or ``tiled``); ``csa_tree_sum.launches`` is that dict.
 They take CUDA tensors only: the wrapper in :mod:`repro_torch.kernels.
 csa_tree.ops` routes CPU tensors to the plain versions.
+
+``csa_tree_tiled_cuda``'s ``_mode="copy"`` (the JAX function's profiling
+argument, :mod:`repro_torch.kernels.profile`) runs the copy skeleton that
+every generated library also holds: the same tiles and loads, only row 0
+of each tile added (``ref.csa_tree_copy_ref``); it is counted in
+:data:`SKELETON_LAUNCHES`.  As in the JAX package there is no ``compute``
+skeleton.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from . import codegen
 #: tiles.  Added to where each kernel is launched.
 LAUNCHES = {"rows": 0, "tiled": 0, "rows_tall": 0}
 
+#: Launches of the tiled kernel's copy skeleton.
+SKELETON_LAUNCHES = {"copy": 0}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -50,8 +60,9 @@ def register_library(rows: int, use_compressors: bool) -> Path:
 @functools.cache
 def _reg_lib(rows: int, use_compressors: bool) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(register_library(rows, use_compressors)))
-    lib.csa_tree_reg.argtypes = [_P, _P, _I, _I, _I, _P]
-    lib.csa_tree_reg.restype = _I
+    for fn in (lib.csa_tree_reg, lib.csa_tree_reg_copy):
+        fn.argtypes = [_P, _P, _I, _I, _I, _P]
+        fn.restype = _I
     lib.csa_tree_reg_error_string.argtypes = [_I]
     lib.csa_tree_reg_error_string.restype = ctypes.c_char_p
     return lib
@@ -99,16 +110,21 @@ def rows_kernel(h: int) -> str:
 
 
 def _launch_reg(operands: torch.Tensor, rows: int, use_compressors: bool,
-                bn: int, key: str) -> torch.Tensor:
+                bn: int, key: str, copy: bool = False) -> torch.Tensor:
     h, n = operands.shape
     out = torch.empty((n,), dtype=torch.int32, device=operands.device)
     if n:
         lib = _reg_lib(rows, use_compressors)
+        fn = lib.csa_tree_reg_copy if copy else lib.csa_tree_reg
         with torch.cuda.device(operands.device):
-            _check(lib.csa_tree_reg(operands.data_ptr(), out.data_ptr(), h, n,
-                                    bn, _stream(operands)),
-                   f"csa_tree_reg (R={rows})", lib.csa_tree_reg_error_string)
-        LAUNCHES[key] += 1
+            _check(fn(operands.data_ptr(), out.data_ptr(), h, n, bn,
+                      _stream(operands)),
+                   f"csa_tree_reg{'_copy' if copy else ''} (R={rows})",
+                   lib.csa_tree_reg_error_string)
+        if copy:
+            SKELETON_LAUNCHES["copy"] += 1
+        else:
+            LAUNCHES[key] += 1
     return out
 
 
@@ -130,10 +146,16 @@ def csa_tree_rows_cuda(operands: torch.Tensor, *, use_compressors: bool = True,
 
 def csa_tree_tiled_cuda(operands: torch.Tensor, *,
                         use_compressors: bool = True, bh: int = 128,
-                        bn: int = 256) -> torch.Tensor:
+                        bn: int = 256, _mode: str = "fused") -> torch.Tensor:
     """(H, N) int32 -> (N,) int32 column sums on the card for any H: the
     generated bh-row register kernel over H tiles in sequence, the tile
-    sums accumulated in 32 bits (rows past H read as 0)."""
+    sums accumulated in 32 bits (rows past H read as 0).  ``_mode="copy"``
+    runs the copy skeleton instead and returns its token, the sum of row 0
+    of each tile (see the module doc)."""
+    if _mode not in ("fused", "copy"):
+        raise ValueError(f"csa_tree_tiled_cuda has the modes 'fused' and "
+                         f"'copy' (no compute skeleton), got {_mode!r}")
     _check_operands(operands)
     _check_block(bh, bn)
-    return _launch_reg(operands, bh, use_compressors, bn, "tiled")
+    return _launch_reg(operands, bh, use_compressors, bn, "tiled",
+                       copy=_mode == "copy")

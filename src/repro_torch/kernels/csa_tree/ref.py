@@ -52,6 +52,15 @@ def csa_tree_ref(operands: torch.Tensor) -> torch.Tensor:
     return _wrap_int32(operands.to(torch.int32).sum(0, dtype=torch.int64))
 
 
+def csa_tree_copy_ref(operands: torch.Tensor, bh: int) -> torch.Tensor:
+    """The tiled kernel's copy skeleton's token (:mod:`repro_torch.kernels.
+    profile`): (H, N) int32 -> (N,) int32, the sum of row 0 of each bh-row
+    tile, ``sum_t x[t * bh]``, wrapping mod 2^32.  The JAX package's copy
+    skeleton at the same bh (``csa_tree_tiled_pallas(..., _mode="copy")``)
+    computes the same."""
+    return _wrap_int32(operands[::bh].to(torch.int64).sum(0))
+
+
 @dataclass(frozen=True)
 class Schedule:
     """The op program of the Fig. 4 reduction for one row count.

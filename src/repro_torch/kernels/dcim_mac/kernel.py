@@ -11,25 +11,42 @@ was refused.  Where it launches a kernel it adds one to :data:`LAUNCHES`
 under the function and the route.  They take CUDA tensors only: the
 wrappers in :mod:`repro_torch.kernels.dcim_mac.ops` route CPU tensors to
 the plain versions.
+
+``dcim_mac_int_cuda``'s ``_mode`` (the JAX functions' profiling argument)
+picks the TMA kernel's profiling skeletons, ``copy`` and ``compute``
+(:mod:`repro_torch.kernels.profile`): built at first use from the same
+source as a library of their own (:func:`~repro_torch.kernels.build.
+build_library`, variant ``skeletons``), launched at any M on operands TMA
+can describe, and counted in :data:`SKELETON_LAUNCHES`.  Their outputs are
+data tokens, not products (``ref.dcim_mac_copy_ref``,
+``ref.dcim_mac_compute_ref``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from pathlib import Path
 
 import torch
 
-from ..build import build_library
+from ..build import SKELETONS, build_library
 from ..tiles import DEFAULT_TILES, MAC_DEPTHS
-from .plan import mac_plan, mac_route
+from .plan import mac_plan, mac_route, tma_describable
 
 #: Kernel launches per function (``dcim_mac_int``: the int32 product;
 #: ``dcim_mac``: with the dequant epilogue) and route (``pipelined``: the
 #: TMA kernel; ``grid``: the ``mma.sync`` kernel).
 LAUNCHES = {"dcim_mac_int": {"pipelined": 0, "grid": 0},
             "dcim_mac": {"pipelined": 0, "grid": 0}}
+
+#: Launches of the TMA kernel's profiling skeletons, by mode.
+SKELETON_LAUNCHES = {"copy": 0, "compute": 0}
+
+#: The profiling modes of ``_mode`` and the C functions' mode numbers.
+MODES = ("fused", "copy", "compute")
+_SKELETON_MODE = {"copy": 1, "compute": 2}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +75,29 @@ def bind(path: Path) -> ctypes.CDLL:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return bind(build_library("dcim_mac"))
+
+
+@functools.cache
+def _skeleton_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library("dcim_mac", SKELETONS)))
+    lib.dcim_mac_tma_skeleton.argtypes = [_P] * 3 + [_I] * 6 + [_P]
+    lib.dcim_mac_tma_skeleton.restype = _I
+    lib.dcim_mac_error_string.argtypes = [_I]
+    lib.dcim_mac_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_TMA_KERNEL = re.compile(r"dcim_mac_tma_kernelILi(\d+)ELi(\d+)ELi(\d+)EE")
+
+
+def tma_kernel_mode(symbol: str) -> str | None:
+    """The mode (``fused``, ``copy``, ``compute``) of the TMA kernel a
+    mangled symbol of a ptxas report names, or None for another kernel.
+    The fused kernel and the compute skeleton need the 168 registers at
+    entry that their ``setmaxnreg`` budget assumes; the copy skeleton has
+    no ``setmaxnreg``."""
+    m = _TMA_KERNEL.search(symbol)
+    return MODES[int(m[3])] if m else None
 
 
 def _check(err: int, name: str) -> None:
@@ -120,14 +160,48 @@ def _launch(name: str, a_q: torch.Tensor, w_q: torch.Tensor,
     LAUNCHES[name][route] += 1
 
 
+def _launch_skeleton(mode: str, a_q: torch.Tensor, w_q: torch.Tensor,
+                     out: torch.Tensor, depth: int) -> None:
+    """Launch the TMA kernel's ``mode`` skeleton into ``out`` and count
+    it."""
+    (m, k), n = a_q.shape, w_q.shape[1]
+    if not tma_describable(k, n, a_q.data_ptr(), w_q.data_ptr()):
+        raise ValueError(
+            f"the {mode} skeleton runs the TMA kernel, which needs K and N "
+            f"multiples of 16 and 16-byte aligned operands; got "
+            f"{m}x{k}x{n}")
+    if depth not in MAC_DEPTHS:
+        raise ValueError(f"depth must be one of {MAC_DEPTHS}, got {depth}")
+    if not (m and n):
+        return
+    lib = _skeleton_lib()
+    with torch.cuda.device(a_q.device):
+        err = lib.dcim_mac_tma_skeleton(
+            a_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), m, k, n,
+            _SKELETON_MODE[mode], depth, mac_plan(m, k, n).splits,
+            _stream(a_q))
+    if err != 0:
+        msg = lib.dcim_mac_error_string(err).decode()
+        raise RuntimeError(f"dcim_mac_tma {mode} skeleton launch failed: "
+                           f"CUDA error {err} ({msg})")
+    SKELETON_LAUNCHES[mode] += 1
+
+
 def dcim_mac_int_cuda(a_q: torch.Tensor, w_q: torch.Tensor, *,
-                      depth: int = DEFAULT_TILES["dcim_mac"].depth
-                      ) -> torch.Tensor:
+                      depth: int = DEFAULT_TILES["dcim_mac"].depth,
+                      _mode: str = "fused") -> torch.Tensor:
     """(M,K) int8 @ (K,N) int8 -> (M,N) int32 on the card; ``depth`` is
-    the TMA route's ring depth."""
+    the TMA route's ring depth.  ``_mode`` ``copy`` or ``compute`` runs
+    the TMA kernel's profiling skeleton instead, at any M, and returns its
+    data token (see the module doc)."""
+    if _mode not in MODES:
+        raise ValueError(f"_mode must be one of {MODES}, got {_mode!r}")
     m, k, n = _check_operands(a_q, w_q)
     out = torch.empty((m, n), dtype=torch.int32, device=a_q.device)
-    _launch("dcim_mac_int", a_q, w_q, None, None, out, depth)
+    if _mode == "fused":
+        _launch("dcim_mac_int", a_q, w_q, None, None, out, depth)
+    else:
+        _launch_skeleton(_mode, a_q, w_q, out, depth)
     return out
 
 

@@ -10,12 +10,10 @@ Routes (the JAX package's route names):
     ``dcim_mac_tma``).  TMA needs 16-byte aligned base addresses and row
     strides, so A's rows (K bytes) and W's rows (N bytes) must be
     multiples of 16 and both operands must start on a 16-byte boundary.
-    Fewer tokens than one ``wgmma`` tile (:data:`TMA_MIN_ROWS`) also take
-    the other route, as the route contract asks; on an H100 the TMA route
-    was the faster one there too at K 2560, N 4096 (``PERF.md``).
+    It takes any number of tokens (:data:`TMA_MIN_ROWS`).
   * ``grid`` — the ``mma.sync`` kernel of 64 x 64 tiles for everything
-    else (ragged rows, a view that starts off a 16-byte boundary, fewer
-    than 64 rows).  It masks every edge itself.
+    else (ragged rows, a view that starts off a 16-byte boundary).  It
+    masks every edge itself.
 
 The rule looks at shape and alignment only, never at whether a launch
 succeeds.
@@ -38,8 +36,11 @@ from ..tiles import DEFAULT_TILES
 BM, BN, BK = (DEFAULT_TILES["dcim_mac"].bm, DEFAULT_TILES["dcim_mac"].bn,
               DEFAULT_TILES["dcim_mac"].bk)
 
-#: Rows of one ``wgmma`` tile: shorter A strips take the grid route.
-TMA_MIN_ROWS = 64
+#: Fewest tokens the TMA route takes: one.  Below one ``wgmma`` tile (64
+#: tokens) the TMA kernel was faster than the grid route at each of the six
+#: qwen3-4b (K, N) pairs at M = 1, 8, 16, 32, 48 and 63 on an H100
+#: (``probes/mac_tma.py --sweep``; ``PERF.md``).
+TMA_MIN_ROWS = 1
 
 #: Alignment TMA needs of a base address and a row stride, in bytes.
 TMA_ALIGN = 16
@@ -58,14 +59,21 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def tma_describable(k: int, n: int, a_ptr: int = 0, w_ptr: int = 0) -> bool:
+    """Whether TMA can describe an (m, k) @ (k, n) product's operands that
+    start at byte addresses ``a_ptr`` and ``w_ptr``: rows and base
+    addresses on 16-byte boundaries."""
+    return (k > 0 and k % TMA_ALIGN == 0 and n % TMA_ALIGN == 0
+            and a_ptr % TMA_ALIGN == 0 and w_ptr % TMA_ALIGN == 0)
+
+
 def mac_route(m: int, k: int, n: int, a_ptr: int = 0, w_ptr: int = 0
               ) -> str:
     """``pipelined`` (the TMA kernel) or ``grid`` (the ``mma.sync``
     kernel) for an (m, k) @ (k, n) product whose operands start at byte
     addresses ``a_ptr`` and ``w_ptr``."""
-    aligned = (k > 0 and k % TMA_ALIGN == 0 and n % TMA_ALIGN == 0
-               and a_ptr % TMA_ALIGN == 0 and w_ptr % TMA_ALIGN == 0)
-    return "pipelined" if aligned and m >= TMA_MIN_ROWS else "grid"
+    return ("pipelined" if tma_describable(k, n, a_ptr, w_ptr)
+            and m >= TMA_MIN_ROWS else "grid")
 
 
 @dataclass(frozen=True)

@@ -19,11 +19,21 @@ for any K that fits in memory.
 
 Scale contract: per-row ``a_scale`` (M,) and per-column ``w_scale`` (N,), or
 Python scalars, as the Pallas kernels take them.
+
+The TMA kernel's profiling skeletons (``_mode``, :mod:`repro_torch.kernels.
+profile`) compute data tokens, not products; :func:`dcim_mac_copy_ref` and
+:func:`dcim_mac_compute_ref` define them.  The JAX package's skeletons
+cannot stand in here: on its copy skeleton the token is one slot's first
+element, and its compute skeleton reads buffers that nothing filled (in
+interpret mode it returned 4,194,304 everywhere), so the port defines
+both tokens itself.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .plan import BK, BM, BN, mac_plan
 
 
 def quant_range(bits: int) -> tuple[int, int]:
@@ -100,3 +110,51 @@ def dcim_matmul_bitserial_ref(a_q: torch.Tensor, w_q: torch.Tensor,
     # S&A over activation bits, OFU over weight bits:
     fused = torch.einsum("a,b,abmn->mn", a_w, w_w, partial)
     return fused.to(torch.int32)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken mod 2^32 as int32 two's complement."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+def _first_words(x: torch.Tensor, width: int) -> torch.Tensor:
+    """(R, C) int8 -> (R, ceil(C / width)) int64: the little-endian 32-bit
+    word of the first four bytes of each ``width``-byte block of a row,
+    bytes past C read as 0 (as TMA fills them)."""
+    r, c = x.shape
+    blocks = -(-c // width)
+    u = torch.zeros((r, blocks * width), dtype=torch.int64, device=x.device)
+    u[:, :c] = x.to(torch.int64) & 0xFF
+    b = u.view(r, blocks, width)[:, :, :4]
+    return b[..., 0] | b[..., 1] << 8 | b[..., 2] << 16 | b[..., 3] << 24
+
+
+def dcim_mac_copy_ref(a_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """The copy skeleton's token, (M, N) int32: every output of the BM x BN
+    strip (i, j) holds, mod 2^32, the sum over the K stages t of the first
+    A word and the first W word of stage t, the little-endian words of
+    bytes A[BM i, BK t .. BK t + 3] and W[BK t, BN j .. BN j + 3].  The
+    K split does not change it: the cluster's reduction sums the splits'
+    stages."""
+    (m, k), n = a_q.shape, w_q.shape[1]
+    a_sum = _first_words(a_q[::BM], BK).sum(1)            # (M strips,)
+    w_sum = _first_words(w_q[::BK], BN).sum(0)            # (N strips,)
+    token = _wrap32(a_sum[:, None] + w_sum[None, :])
+    return token.repeat_interleave(BM, 0)[:m].repeat_interleave(BN, 1)[:, :n]
+
+
+def dcim_mac_compute_ref(a_q: torch.Tensor, w_q: torch.Tensor
+                         ) -> torch.Tensor:
+    """The compute skeleton's token, (M, N) int32: with ``mac_plan(M, K,
+    N)`` as the kernel uses it, the sum over its K splits z of n_z times
+    the product of split z's first stage, A[:, k_z:k_z + BK] @ W[k_z:k_z +
+    BK, :] (n_z the split's stages, k_z its first K), mod 2^32."""
+    (m, k), n = a_q.shape, w_q.shape[1]
+    plan = mac_plan(m, k, n)
+    acc = torch.zeros((m, n), dtype=torch.int64, device=a_q.device)
+    for (begin, end), (k0, _) in zip(plan.stage_ranges, plan.k_ranges):
+        k1 = min(k0 + BK, k)
+        acc += (end - begin) * _exact_matmul(a_q[:, k0:k1],
+                                             w_q[k0:k1]).to(torch.int64)
+    return _wrap32(acc)

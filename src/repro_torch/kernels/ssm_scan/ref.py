@@ -9,6 +9,12 @@ composition (A, B) o (A', B') = (A'A, A'B + B') run as a log-depth
 doubling, since torch has no ``associative_scan``; and the chunked scan
 the CUDA kernel computes (:func:`ssm_scan_chunked_ref`), whose split
 :func:`ssm_chunks` fixes from the shape alone.
+
+The kernel's profiling skeletons (``_mode``, :mod:`repro_torch.kernels.
+profile`) compute data tokens: :func:`ssm_scan_copy_ref` (the JAX
+package's copy skeleton at the same ``bt``) and :func:`ssm_scan_compute_ref`,
+which the port defines itself: the JAX compute skeleton scans a buffer
+that nothing filled (in interpret mode it returned NaN).
 """
 
 from __future__ import annotations
@@ -103,3 +109,41 @@ def ssm_scan_chunked_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
         states[:, r] = h
     states = states.reshape(s * rows, d)[:t]
     return states, states[-1].clone()
+
+
+def ssm_scan_copy_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                      bt: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The copy skeleton's token: states a + b, and the final state by the
+    JAX package's rule at tile height ``bt``: the last state where bt does
+    not divide T, else h0 (its copy skeleton never moves the carry)."""
+    states = a + b
+    t = a.shape[0]
+    return states, (states[-1].clone() if t % bt else h0.clone())
+
+
+def ssm_scan_compute_ref(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+                         chunks: int, bt: int) -> tuple[None, torch.Tensor]:
+    """The compute skeleton's token: no states, and the final state of
+    :func:`ssm_scan_chunked_ref`'s three passes when row r of every chunk
+    reads the chunk's row r mod B, B = min(bt, L): each chunk's first
+    sub-chunk, loaded once, stands in for all of it."""
+    t, d = a.shape
+    if t == 0:
+        return None, h0.clone()
+    rows = -(-t // chunks)
+    s = -(-t // rows)
+    sub = min(bt, rows)
+    idx = (torch.arange(s, device=a.device)[:, None] * rows
+           + torch.arange(sub, device=a.device)).clamp(max=t - 1)
+    ra, rb = a[idx], b[idx]                                 # (S, B, D)
+    prod = a.new_ones((s - 1, d))
+    end = a.new_zeros((s - 1, d))
+    for r in range(rows):
+        prod = ra[:-1, r % sub] * prod
+        end = ra[:-1, r % sub] * end + rb[:-1, r % sub]
+    h = h0
+    for c in range(s - 1):
+        h = prod[c] * h + end[c]
+    for r in range(t - (s - 1) * rows):
+        h = ra[-1, r % sub] * h + rb[-1, r % sub]
+    return None, h.clone()

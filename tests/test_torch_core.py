@@ -428,7 +428,7 @@ class TestDeviceContract:
 
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                     (REPO / "src" / "repro_torch").rglob("*.py")) \
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "scripts/torch_profile_kernels.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -448,6 +448,12 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 class TestImportHygiene:
     def test_port_files_found(self):
         assert len(PORT_FILES) > 20
+        for rel in ("src/repro_torch/kernels/profile.py",
+                    "src/repro_torch/kernels/timing.py",
+                    "src/repro_torch/roofline/hw.py",
+                    "src/repro_torch/roofline/dcim.py",
+                    "scripts/torch_profile_kernels.py"):
+            assert rel in PORT_FILES
 
     @pytest.mark.parametrize("rel", PORT_FILES)
     def test_no_jax_or_reference_imports(self, rel):

@@ -1,6 +1,7 @@
 """The port on the CUDA card: the hand-written ``dcim_mac``, ``csa_tree``
-and ``ssm_scan`` kernels against their plain torch versions, the tile
-autotuner's winners, and the compiler's device path against the CPU.
+and ``ssm_scan`` kernels and their profiling skeletons against their plain
+torch versions, the tile autotuner's winners, the kernel profiler, and the
+compiler's device path against the CPU.
 
 Every test here needs a card, carries the ``cuda`` marker and skips with a
 reason where none is visible (the kernel has no CPU mode).  The module
@@ -10,8 +11,9 @@ only torch:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerances: none for ``dcim_mac`` and ``csa_tree`` (int32, float32 and
-bfloat16 outputs must equal the plain version's bits) and for the
-compiler (its arrays must equal the CPU's bits).  ``ssm_scan`` is a float
+bfloat16 outputs must equal the plain version's bits), for every
+skeleton's data token, and for the compiler (its arrays must equal the
+CPU's bits).  ``ssm_scan`` is a float
 scan: it must equal its chunked plain version bit for bit at every tile and
 depth, and stay within the JAX package's rtol/atol of 2e-5 (3e-5 on ragged
 shapes) of the sequential plain version.
@@ -27,18 +29,24 @@ from repro_torch.core import subcircuits as sc
 from repro_torch.convert import (csa_operands_from_numpy,
                                  ssm_operands_from_numpy)
 from repro_torch.kernels import TileConfig, autotune
-from repro_torch.kernels.build import (library_path, ptxas_report,
-                                      wgmma_serialized)
+from repro_torch.kernels.build import (SKELETONS, library_path,
+                                      ptxas_report, wgmma_serialized)
 from repro_torch.kernels.csa_tree import (CSA_MAX_ROWS, CSA_REG_ROWS,
                                           csa_tree_ref, csa_tree_rows_cuda,
                                           csa_tree_sum, csa_tree_tiled_cuda)
+from repro_torch.kernels.csa_tree import kernel as csa_kernel
 from repro_torch.kernels.csa_tree.kernel import register_library
+from repro_torch.kernels.csa_tree.ref import csa_tree_copy_ref
 from repro_torch.kernels.dcim_mac import (dcim_matmul, dcim_matmul_int,
                                           mac_plan, mac_route, ref)
 from repro_torch.kernels.dcim_mac import kernel as mac_kernel
 from repro_torch.kernels.tiles import MAC_DEPTHS, smem_bytes
+from repro_torch.kernels.profile import profile_kernel
 from repro_torch.kernels.ssm_scan import (ssm_chunks, ssm_scan,
                                           ssm_scan_chunked_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_compute_ref,
+                                              ssm_scan_copy_ref)
 from repro_torch.obs.metrics import get_registry
 
 pytestmark = pytest.mark.cuda
@@ -389,3 +397,112 @@ def test_autotune_on_the_card_and_auto_dispatch(cuda_device, kernel, shape):
         assert counter.value == before + 1
     finally:
         autotune.clear_memo()
+
+
+# -- profiling skeletons -----------------------------------------------------
+
+def test_skeleton_libraries_build_clean(cuda_device):
+    """The skeleton libraries build from the same sources; no kernel
+    spills, ptxas keeps the compute skeleton's wgmma pipeline (no C7520),
+    and it has the 168 registers its setmaxnreg budget assumes (checked
+    before any skeleton launches: a wrong count could hang it)."""
+    mac_kernel._skeleton_lib()
+    log = library_path("dcim_mac", SKELETONS).with_suffix(".log").read_text()
+    report = ptxas_report(log)
+    modes = {fn: mac_kernel.tma_kernel_mode(fn) for fn in report}
+    assert sorted(modes.values()) == sorted(["copy", "compute"]
+                                            * len(MAC_DEPTHS))
+    assert wgmma_serialized(log) == set()
+    for fn, usage in report.items():
+        assert usage["spill_stores"] == usage["spill_loads"] == 0, fn
+        if modes[fn] == "compute":
+            assert usage["registers"] == 168, fn
+    ssm_kernel._skeleton_lib()
+    log = library_path("ssm_scan", SKELETONS).with_suffix(".log").read_text()
+    assert len(ptxas_report(log)) == 2 * 2 * 4
+
+
+# the qwen3-4b wk and mlp_down GEMMs (K split 8 and 4), a ragged M below
+# one wgmma tile, a ragged M and N over a K whose last stage is partial,
+# one token, and M past one strip
+SKELETON_MAC_SHAPES = [(256, 2560, 1024), (256, 9728, 2560), (32, 128, 128),
+                       (130, 2000, 208), (1, 512, 64), (600, 640, 384)]
+
+
+@pytest.mark.parametrize("mode", ["copy", "compute"])
+@pytest.mark.parametrize("m,k,n", SKELETON_MAC_SHAPES)
+@pytest.mark.parametrize("depth", MAC_DEPTHS)
+def test_dcim_mac_skeleton_equals_plain_version(cuda_device, mode, m, k, n,
+                                                depth):
+    a, w, _, _ = operands(m, k, n, seed=m + k, device=cuda_device)
+    plain = {"copy": ref.dcim_mac_copy_ref,
+             "compute": ref.dcim_mac_compute_ref}[mode]
+    before = dict(mac_kernel.SKELETON_LAUNCHES)
+    got = mac_kernel.dcim_mac_int_cuda(a, w, depth=depth, _mode=mode)
+    assert mac_kernel.SKELETON_LAUNCHES == {**before, mode: before[mode] + 1}
+    assert torch.equal(got, plain(a, w))
+
+
+def test_dcim_mac_skeleton_needs_the_tma_kernel(cuda_device):
+    a, w, _, _ = operands(8, 100, 64, seed=0, device=cuda_device)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mac_kernel.dcim_mac_int_cuda(a, w, _mode="copy")
+
+
+@pytest.mark.parametrize("h,n,bh", [(2560, 4096, 128), (600, 300, 128),
+                                    (513, 1000, 64), (300, 41, 32),
+                                    (1, 5, 128), (77, 999, 77)])
+def test_csa_tree_copy_skeleton_equals_plain_version(cuda_device, h, n, bh):
+    x = csa_stack(h, n, seed=h + n)
+    before = dict(csa_kernel.SKELETON_LAUNCHES)
+    got = csa_tree_tiled_cuda(x, bh=bh, _mode="copy")
+    assert csa_kernel.SKELETON_LAUNCHES == {"copy": before["copy"] + 1}
+    assert torch.equal(got, csa_tree_copy_ref(x, bh))
+
+
+def test_csa_tree_has_no_compute_skeleton(cuda_device):
+    with pytest.raises(ValueError, match="no compute skeleton"):
+        csa_tree_tiled_cuda(csa_stack(8, 8, seed=0), _mode="compute")
+
+
+# chunked (T a multiple of bt, and not), one pass (S = 1, both), and the
+# tuned shape class
+SKELETON_SSM_SHAPES = [(1024, 256), (1000, 300), (4096, 256), (100, 16384),
+                       (128, 16384)]
+
+
+@pytest.mark.parametrize("mode", ["copy", "compute"])
+@pytest.mark.parametrize("t,d", SKELETON_SSM_SHAPES)
+@pytest.mark.parametrize("tc", [TileConfig(bt=32, bd=128, depth=d)
+                                for d in (1, 2, 3, 4)]
+                         + [TileConfig(bt=64, bd=64, depth=2)])
+def test_ssm_scan_skeleton_equals_plain_version(cuda_device, mode, t, d, tc):
+    a, b, h0 = ssm_inputs(t, d, seed=t + d)
+    chunks = ssm_chunks(t, d)[0]
+    before = dict(ssm_kernel.SKELETON_LAUNCHES)
+    s, f = ssm_kernel.ssm_scan_cuda(a, b, h0, bt=tc.bt, bd=tc.bd,
+                                    depth=tc.depth, _mode=mode)
+    kernels = 2 if chunks > 1 else 1
+    assert ssm_kernel.SKELETON_LAUNCHES == {**before,
+                                            mode: before[mode] + kernels}
+    if mode == "copy":
+        want_s, want_f = ssm_scan_copy_ref(a, b, h0, tc.bt)
+        assert torch.equal(s, want_s)
+    else:
+        want_s, want_f = ssm_scan_compute_ref(a, b, h0, chunks, tc.bt)
+        assert s is None and want_s is None
+    assert torch.equal(f, want_f)
+
+
+@pytest.mark.parametrize("kernel,shape", [("dcim_mac", (256, 2560, 1024)),
+                                          ("ssm_scan", (1024, 256)),
+                                          ("csa_tree", (600, 256))])
+def test_profile_kernel_on_the_card(cuda_device, kernel, shape):
+    """On the card the profiler times the CUDA skeletons; only csa_tree's
+    compute time is derived."""
+    p = profile_kernel(kernel, shape, iters=2)
+    assert p.backend == "cuda"
+    assert p.compute_measured == (kernel != "csa_tree")
+    assert p.t_copy_us > 0 and p.t_fused_us > 0
+    assert p.t_compute_us > 0 or kernel == "csa_tree"
+    assert 0 < p.roofline_fraction <= 1

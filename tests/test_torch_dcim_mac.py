@@ -225,7 +225,19 @@ class TestPlan:
 
     @pytest.mark.parametrize("m,k,n", RAGGED)
     def test_ragged_shapes_take_the_grid_route(self, m, k, n):
-        assert mac_route(m, k, n) == "grid"
+        """Rows TMA cannot describe (K or N not a multiple of 16) take the
+        grid route; a ragged M alone, down to one token, takes the TMA
+        route (``TMA_MIN_ROWS``)."""
+        want = "grid" if k % 16 or n % 16 else "pipelined"
+        assert mac_route(m, k, n) == want
+
+    @pytest.mark.parametrize("m", [1, 8, 16, 32, 48, 63])
+    @pytest.mark.parametrize("m_k_n", QWEN_GEMMS)
+    def test_few_tokens_take_the_tma_route(self, m, m_k_n):
+        """Below one wgmma tile the TMA route was the faster one at every
+        qwen3-4b (K, N) pair on an H100, so it takes every token count."""
+        assert plan.TMA_MIN_ROWS == 1
+        assert mac_route(m, *m_k_n[1:], 0, 4096) == "pipelined"
 
     @pytest.mark.parametrize("a_off,w_off,want", [
         (1, 0, "grid"), (0, 8, "grid"), (16, 32, "pipelined")])
@@ -235,13 +247,18 @@ class TestPlan:
 
     def test_the_route_follows_the_tensors(self):
         """An A that starts one byte into its storage goes to the grid
-        route, on the CPU as on the card, and the dispatch counters name
-        the route."""
+        route's kernel, on the CPU as on the card; the dispatch counters
+        name the JAX package's route (by the tile's depth: ``pipelined``)
+        and ``mac_route`` the kernel."""
         a, w, _, _ = port(*operands(256, 256, 256, seed=7))
         a_off = torch.empty(a.numel() + 1, dtype=torch.int8)[1:].view(a.shape)
         a_off.copy_(a)
         assert _routes(lambda: dcim_matmul_int(a, w)) == {"pipelined": 1}
-        assert _routes(lambda: dcim_matmul_int(a_off, w)) == {"grid": 1}
+        assert _routes(lambda: dcim_matmul_int(a_off, w)) == {"pipelined": 1}
+        assert mac_route(256, 256, 256, a.data_ptr(), w.data_ptr()) == \
+            "pipelined"
+        assert mac_route(256, 256, 256, a_off.data_ptr(), w.data_ptr()) == \
+            "grid"
         np.testing.assert_array_equal(dcim_matmul_int(a_off, w).numpy(),
                                       ref.dcim_matmul_int_ref(a, w).numpy())
 

@@ -32,6 +32,7 @@ from repro_torch.kernels.tiles import (CSA_REG_ROWS, CSA_THREADS, KERNELS,
                                        MAC_DEPTHS, MAC_W_BUFS, MAX_THREADS,
                                        SMEM_BUDGET_BYTES, WARP, feasible,
                                        smem_bytes)
+from repro_torch.kernels.dcim_mac import mac_route
 from repro_torch.obs import tracer
 from repro_torch.obs.metrics import get_registry
 
@@ -244,6 +245,15 @@ class TestAutotune:
             res.winner
 
 
+def _offset_view(x: np.ndarray) -> torch.Tensor:
+    """``x`` as a contiguous torch view that starts one byte into its
+    buffer (off the 16-byte alignment TMA needs)."""
+    buf = torch.zeros(x.size + 1, dtype=torch.int8)
+    view = buf[1:].view(x.shape)
+    view.copy_(torch.as_tensor(x))
+    return view
+
+
 def _kernel_counters(reg):
     return {k: v for k, v in reg.as_dict().items() if k.startswith("kernel/")}
 
@@ -268,10 +278,16 @@ class TestDispatchCounters:
         a = rng.uniform(0.7, 1.0, (40, 128)).astype(np.float32)
         b = rng.normal(size=(40, 128)).astype(np.float32)
         h0 = np.zeros(128, np.float32)
-        # 64 tokens, aligned rows: the port's TMA route, "pipelined" as the
-        # JAX package's default depth-2 call
+        # aligned rows: the port's TMA kernel, "pipelined" as the JAX
+        # package's default depth-2 call
         qa = rng.integers(-8, 8, (64, 128), dtype=np.int8)
         qw = rng.integers(-8, 8, (128, 64), dtype=np.int8)
+        # 8 tokens, a one-byte-offset A and ragged rows (the last two on
+        # the mma.sync kernel): the counter names the JAX package's
+        # depth-2 route
+        qa8 = rng.integers(-8, 8, (8, 128), dtype=np.int8)
+        qr_a = rng.integers(-8, 8, (130, 96), dtype=np.int8)
+        qr_w = rng.integers(-8, 8, (96, 200), dtype=np.int8)
         j, t = jnp.asarray, torch.as_tensor
         jtc, ttc = jax_tiles.TileConfig, TileConfig
         kw = dict(use_pallas=True, interpret=True)
@@ -298,11 +314,20 @@ class TestDispatchCounters:
                 lambda: ssm_scan(t(a), t(b), t(h0), tile_config="auto")),
             "dcim_default": (lambda: jax_dcim_matmul_int(j(qa), j(qw), **kw),
                              lambda: dcim_matmul_int(t(qa), t(qw))),
+            "dcim_8_tokens": (
+                lambda: jax_dcim_matmul_int(j(qa8), j(qw), **kw),
+                lambda: dcim_matmul_int(t(qa8), t(qw))),
+            "dcim_offset": (lambda: jax_dcim_matmul_int(j(qa), j(qw), **kw),
+                            lambda: dcim_matmul_int(_offset_view(qa), t(qw))),
+            "dcim_ragged": (
+                lambda: jax_dcim_matmul_int(j(qr_a), j(qr_w), **kw),
+                lambda: dcim_matmul_int(t(qr_a), t(qr_w))),
         }
 
     @pytest.mark.parametrize("call", ["csa_rows", "csa_tall", "csa_explicit",
                                       "ssm_default", "ssm_grid", "ssm_auto",
-                                      "dcim_default"])
+                                      "dcim_default", "dcim_8_tokens",
+                                      "dcim_offset", "dcim_ragged"])
     def test_same_counter_names(self, call):
         jax_call, port_call = self.calls()[call]
         want = _delta(jax_get_registry(), jax_call)
@@ -345,6 +370,30 @@ class TestDispatchSpan:
             tracer.clear()
         (span,) = spans
         assert span.tags["kernel"] == kernel
+
+    @pytest.mark.parametrize("m,k,n,offset,kernel", [
+        (64, 128, 64, False, "tma"), (256, 256, 512, False, "tma"),
+        (8, 128, 64, False, "tma"), (64, 128, 64, True, "mma_sync"),
+        (130, 96, 200, False, "mma_sync")])
+    def test_dcim_mac_span_names_its_kernel(self, m, k, n, offset, kernel):
+        a = np.ones((m, k), np.int8)
+        w = torch.ones((k, n), dtype=torch.int8)
+        a_t = _offset_view(a) if offset else torch.as_tensor(a)
+        assert mac_route(m, k, n, a_t.data_ptr(), w.data_ptr()) == (
+            "pipelined" if kernel == "tma" else "grid")
+        tracer.configure(enabled=True, sample=1.0)
+        tracer.clear()
+        try:
+            with tracer.start_trace("request"):
+                out = dcim_matmul_int(a_t, w)
+            spans = [s for s in tracer.drain() if s.name == "kernel.dcim_mac"]
+        finally:
+            tracer.configure(enabled=False)
+            tracer.clear()
+        (span,) = spans
+        assert span.tags["route"] == "pipelined"
+        assert span.tags["kernel"] == kernel
+        assert torch.equal(out, torch.full((m, n), k, dtype=torch.int32))
 
     def test_untraced_calls_open_no_span(self):
         tracer.clear()
