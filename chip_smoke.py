@@ -75,7 +75,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
                two reports bit-identical; ``dcim_serving_bound`` of each
                workload's best macro at ``kernel_fraction`` 1.0 and at the
                fraction the profile phase measured;
-  9. report    one ``{"kernels": [...]}`` line, then as the last line
+  9. service   the compiler's serving path on the card
+               (``repro_torch.service``, ``serve.select``, the layout
+               tail): a ``SynthesisService`` on the card with a disk store
+               behind a ``ServiceFrontend`` takes the four scenario specs
+               as INTERACTIVE requests, the same four again and one BULK
+               sweep: one fused engine pass, four coalesced duplicates,
+               every frontier equal to the compiler phase's cuda search bit
+               for bit; a second service on the same store answers the four
+               from disk with no engine pass; ``scripts/torch_warm_cache.py
+               --autotune-kernels default`` fills a registry in a
+               subprocess, and ``tile_config="auto"`` of ``dcim_matmul``,
+               ``csa_tree_sum`` and ``ssm_scan`` then resolves from it
+               (``tile_source/registry``) and equals the plain versions;
+               ``select_macros`` for qwen3-4b and zamba2-1.2b through the
+               frontend at the profiled fraction picks what the serving
+               phase's co-design picks, with the same tokens/s bit for bit;
+               the qwen3-4b macro's RTL, DEF and SDP script equal those of
+               the CPU run's pick, its adder tree passes the gate-level
+               check, and ``csa_tree_sum`` on the card equals
+               ``gatesim.simulate`` of its netlist at its 64 rows and at
+               256; ``examples/torch_quickstart.py`` prints ``PASS``;
+ 10. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
@@ -1199,11 +1220,12 @@ def phase_profile(wk) -> tuple[list[dict], Path]:
 # ---------------------------------------------------------------------------
 
 
-def phase_serving(results: dict, artifact: Path) -> None:
+def phase_serving(results: dict, artifact: Path) -> dict:
     """Cross-workload co-design of the scenario frontiers' pool for the
     port's two configurations, from the cuda and the cpu searches (bit for
     bit the same), and the serving bound of each workload's best macro at
-    kernel fractions 1.0 and as profiled."""
+    kernel fractions 1.0 and as profiled.  Returns the workloads, both
+    reports, the profiled fraction and the tokens/s at it."""
     from repro_torch.configs import get_config
     from repro_torch.core import (cross_workload_codesign, frontier_union,
                                   gemm_inventory)
@@ -1229,6 +1251,7 @@ def phase_serving(results: dict, artifact: Path) -> None:
         f"{[rg.designs[i] for i in rg.frontier]}; cuda == cpu bit for bit "
         f"({', '.join(arrays)}, frontier, best_for)")
     fraction = fraction_from_profile_artifact(artifact)
+    tokens_per_s = {}
     for wl, gemms in workloads.items():
         best = rg.best_for(wl)
         wall = float(rg.wallclock_s[rg.workloads.index(wl), best])
@@ -1238,10 +1261,243 @@ def phase_serving(results: dict, artifact: Path) -> None:
                                      kernel_fraction=frac)
             check(np.isfinite(est.tokens_per_s) and est.tokens_per_s > 0,
                   f"serving: {wl}: no finite throughput")
+            tokens_per_s[wl] = est.tokens_per_s
             log(f"serving: {wl} on {rg.designs[best]} at kernel_fraction "
                 f"{frac!r}: t_macro {est.t_macro_s!r} s, t_hbm "
                 f"{est.t_hbm_s!r} s, {est.tokens_per_s!r} tokens/s, "
                 f"{est.bottleneck}")
+    return {"workloads": workloads, "reports": reports, "fraction": fraction,
+            "tokens_per_s": tokens_per_s}
+
+
+# ---------------------------------------------------------------------------
+# 9. service
+# ---------------------------------------------------------------------------
+
+
+def _same_result(a, b) -> bool:
+    return (a.n_evaluated == b.n_evaluated
+            and [_ppa_repr(p) for p in a.frontier]
+            == [_ppa_repr(p) for p in b.frontier]
+            and [_ppa_repr(p) for p in a.explored]
+            == [_ppa_repr(p) for p in b.explored])
+
+
+def phase_service(results: dict, serving: dict) -> None:
+    """The serving path on the card, held against the compiler and serving
+    phases' results (themselves held bit for bit against ``device="cpu"``):
+    cold and warm launches of the service behind its frontend, the tile
+    registry, macro selection and the layout tail (module doc, phase 9)."""
+    import shutil
+
+    import torch
+
+    import repro_torch.core as C
+    from repro_torch.core import engine, gatesim, layout
+    from repro_torch.core import subcircuits as sc
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.csa_tree import csa_tree_ref, csa_tree_sum
+    from repro_torch.kernels.dcim_mac import dcim_matmul
+    from repro_torch.kernels.dcim_mac.ref import dcim_matmul_ref
+    from repro_torch.kernels.ssm_scan import (ssm_chunks, ssm_scan,
+                                              ssm_scan_chunked_ref)
+    from repro_torch.obs.metrics import get_registry
+    from repro_torch.serve import select_macros
+    from repro_torch.service import (ArtifactRegistry, FrontierCache,
+                                     Priority, ServiceFrontend,
+                                     SynthesisRequest, SynthesisService)
+
+    work = ROOT / "build" / "service"
+    shutil.rmtree(work, ignore_errors=True)
+    store, registry_root = work / "store", work / "registry"
+    scen = C.scenario_specs()
+    names, specs = list(scen), list(scen.values())
+    config = C.LatticeConfig(precision_modes=3, approx_cells=sc.APPROX_CELLS)
+    want = results["cuda"]
+    passes = []
+    hook = lambda plan, elapsed: passes.append((len(plan), elapsed))
+    engine.add_latency_hook(hook)
+    try:
+        # 1. cold launch: one fused pass for the four unique specs
+        svc = SynthesisService(cache=FrontierCache(store_dir=store))
+        check(svc.device.type == "cuda", f"service on {svc.device}")
+        searches = [SynthesisRequest(spec=s, config=config, tag=n)
+                    for n, s in zip(names, specs)]
+        sweep = SynthesisRequest(spec=specs[0], kind="sweep",
+                                 priority=Priority.BULK, tag="sweep")
+        t0 = time.perf_counter()
+        with ServiceFrontend(svc, window=0.05, max_batch=16) as front:
+            tickets = [front.submit(r) for r in searches + searches + [sweep]]
+            cold = [t.result(timeout=600) for t in tickets]
+        wall = time.perf_counter() - t0
+        st = svc.stats
+        check(st.fused_passes == 1 and st.coalesced == 4 and st.misses == 5
+              and front.stats.batches == 1,
+              f"service: cold launch made {st.fused_passes} fused passes, "
+              f"{st.coalesced} coalesced, {st.misses} misses in "
+              f"{front.stats.batches} batches")
+        for i, resp in enumerate(cold[:8]):
+            check(resp.served_from == ("engine" if i < 4 else "coalesced")
+                  and _same_result(resp.result, want[i % 4]),
+                  f"service: {names[i % 4]} ({resp.served_from}) differs "
+                  "from the compiler phase's cuda search")
+        check(len(cold[8].result.frontier) > 0, "service: empty sweep")
+        fused = [e for n, e in passes if n == 4]
+        check(len(fused) == 1, f"service: fused passes seen {passes}")
+        n_points = len(C.DesignLattice.enumerate(specs[0], config=config))
+        log(f"service: cold launch on {svc.device}: 9 requests (4 scenario "
+            f"searches at {n_points} points, 4 duplicates, 1 BULK sweep) "
+            f"in {wall:.3f} s; one "
+            f"fused pass of 4 specs {fused[0]:.6f} s (engine latency hook), "
+            f"coalesced {st.coalesced}; frontiers == compiler phase cuda "
+            "bit for bit")
+        for r in cold:
+            log(f"  {r.request.tag} ({r.served_from}): queued -> batched "
+                f"{r.queue_delay_s:.6f} s, batched -> served "
+                f"{r.served_at - r.batched_at:.6f} s")
+
+        # 2. warm launch: a new service on the same store
+        warm_svc = SynthesisService(cache=FrontierCache(store_dir=store))
+        front = ServiceFrontend(warm_svc, window=0.005)
+        t0 = time.perf_counter()
+        warm = front.serve(searches, timeout=600)
+        wall = time.perf_counter() - t0
+        ws = warm_svc.stats
+        check(ws.cache_hits == 4 and ws.misses == 0 and ws.fused_passes == 0
+              and warm_svc.cache.stats.disk_hits == 4
+              and all(_same_result(r.result, w)
+                      for r, w in zip(warm, want)),
+              f"service: warm launch {warm_svc.telemetry()}")
+        log(f"service: warm launch: hits {ws.cache_hits} (disk "
+            f"{warm_svc.cache.stats.disk_hits}), misses {ws.misses}, fused "
+            f"passes {ws.fused_passes}, served in {wall:.6f} s; equal "
+            "results")
+
+        # 3. tile warm-up in a subprocess, then registry-resolved tiles
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "scripts" / "torch_warm_cache.py"),
+             "--store", str(work / "warm_store"), "--registry",
+             str(registry_root), "--resolutions", "3", "--autotune-kernels",
+             "default"], capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0,
+              f"torch_warm_cache.py failed: {proc.stderr[-2000:]}")
+        log(f"service: scripts/torch_warm_cache.py --resolutions 3 "
+            f"--autotune-kernels default: {time.perf_counter() - t0:.3f} s")
+        for line in proc.stdout.splitlines():
+            log(f"  {line}")
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        a = torch.randint(-128, 128, (128, 512), generator=g, device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (512, 512), generator=g, device="cuda",
+                          dtype=torch.int8)
+        a_s = torch.rand(128, generator=g, device="cuda") + 0.01
+        w_s = torch.rand(512, generator=g, device="cuda") + 0.01
+        x = torch.randint(-2 ** 16, 2 ** 16, (256, 512), generator=g,
+                          device="cuda", dtype=torch.int32)
+        sa = torch.rand((1024, 256), generator=g, device="cuda") * 0.3 + 0.7
+        sb = torch.randn((1024, 256), generator=g, device="cuda")
+        h0 = torch.randn(256, generator=g, device="cuda")
+        calls = {
+            "dcim_mac": (lambda tc: dcim_matmul(a, w, a_s, w_s,
+                                                tile_config=tc),
+                         lambda: dcim_matmul_ref(a, w, a_s, w_s)),
+            "csa_tree": (lambda tc: csa_tree_sum(x, tile_config=tc),
+                         lambda: csa_tree_ref(x)),
+            "ssm_scan": (lambda tc: ssm_scan(sa, sb, h0, tile_config=tc)[0],
+                         lambda: ssm_scan_chunked_ref(
+                             sa, sb, h0, ssm_chunks(1024, 256)[0])[0]),
+        }
+        autotune.clear_memo()
+        autotune.set_registry(ArtifactRegistry(registry_root))
+        try:
+            for kernel, (run, plain) in calls.items():
+                counter = get_registry().counter(
+                    f"kernel/{kernel}/tile_source/registry")
+                before = counter.value
+                got = run("auto")
+                check(counter.value == before + 1,
+                      f"service: {kernel} tile_config=\"auto\" did not "
+                      "resolve from the registry")
+                check(torch.equal(got, plain()),
+                      f"service: {kernel} with the registry's tile differs "
+                      "from its plain version")
+        finally:
+            autotune.set_registry(None)
+            autotune.clear_memo()
+        log("service: tile_config=\"auto\" of dcim_matmul (128x512x512), "
+            "csa_tree_sum (256 x 512) and ssm_scan (1024, 256) each resolved "
+            "from the warmed registry (kernel/<k>/tile_source/registry +1), "
+            "equal to the plain versions")
+
+        # 4. selection through the frontend, from the warm cache
+        t0 = time.perf_counter()
+        sel = select_macros(serving["workloads"], service=front,
+                            config=config,
+                            kernel_fraction=serving["fraction"])
+        wall = time.perf_counter() - t0
+        front.close()
+        _, labels = C.frontier_union(want, names)
+        rg = serving["reports"]["cuda"]
+        check(ws.fused_passes == 0, "service: selection ran an engine pass")
+        check(list(sel.pool_labels) == labels, "service: pool labels differ")
+        for wl in serving["workloads"]:
+            check(sel.assignment[wl] == rg.best_for(wl)
+                  and repr(sel.serving[wl].tokens_per_s)
+                  == repr(serving["tokens_per_s"][wl]),
+                  f"service: {wl}: selection differs from the serving "
+                  "phase's co-design")
+            log(f"service: select_macros: {wl} -> {sel.label_for(wl)}, "
+                f"{sel.serving[wl].tokens_per_s!r} tokens/s at kernel "
+                f"fraction {serving['fraction']!r} (== serving phase)")
+        log(f"service: select_macros from the warm cache in {wall:.6f} s")
+
+        # 5. the layout tail of the qwen3-4b pick
+        ppa = sel.ppa_for("qwen3-4b")
+        cpu_pick = C.frontier_union(results["cpu"])[
+            serving["reports"]["cpu"].best_for("qwen3-4b")]
+        texts = {}
+        for what, emit in (
+                ("RTL", C.emit_verilog),
+                ("DEF", lambda p: layout.emit_def(layout.place(p))),
+                ("SDP script", layout.emit_sdp_script)):
+            texts[what] = emit(ppa)
+            check(texts[what] == emit(cpu_pick),
+                  f"service: {what} differs from the CPU run's pick")
+        design = ppa.design
+        nl = C.tree_netlist(design)
+        rng = np.random.default_rng(SEED)
+        ops = rng.integers(-8, 8, size=(nl.n_inputs, 1000))
+        check(C.verify_tree(nl, ops), "service: gate-level check failed")
+        for h in sorted({design.spec.h, 64, 256}):
+            ops = rng.integers(-(2 ** 31) // 512, 2 ** 31 // 512,
+                               size=(h, 4096))
+            got = csa_tree_sum(torch.as_tensor(ops, dtype=torch.int32,
+                                               device="cuda"))
+            ref = gatesim.simulate(C.build_netlist(design.csa, h), ops)
+            check(np.array_equal(got.cpu().numpy().astype(np.int64), ref),
+                  f"service: csa_tree_sum at {h} rows differs from the "
+                  "gate-level simulation")
+        log(f"service: layout tail of {design.name()}: "
+            + ", ".join(f"{k} {len(v.splitlines())} lines"
+                        for k, v in texts.items())
+            + " (== the CPU run's pick); gate-level check PASS; "
+            f"csa_tree_sum == gatesim.simulate at "
+            f"{sorted({design.spec.h, 64, 256})} rows")
+    finally:
+        engine.remove_latency_hook(hook)
+
+    # 6. the quickstart
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_quickstart.py")],
+        capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines and lines[-1].endswith("PASS"),
+          f"torch_quickstart.py failed: {proc.stdout[-1000:]}"
+          f"{proc.stderr[-2000:]}")
+    log(f"service: examples/torch_quickstart.py on the card: "
+        f"{time.perf_counter() - t0:.3f} s, {lines[-1]}")
 
 
 def main() -> int:
@@ -1274,12 +1530,14 @@ def main() -> int:
     skeletons, artifact = phase_profile(wk)
     kernels += skeletons
     t7 = time.perf_counter()
-    phase_serving(chosen["results"], artifact)
+    serving = phase_serving(chosen["results"], artifact)
     t8 = time.perf_counter()
+    phase_service(chosen["results"], serving)
+    t9 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"mac {t3 - t2:.3f} s, csa {t4 - t3:.3f} s, ssm {t5 - t4:.3f} s, "
         f"autotune {t6 - t5:.3f} s, profile {t7 - t6:.3f} s, serving "
-        f"{t8 - t7:.3f} s")
+        f"{t8 - t7:.3f} s, service {t9 - t8:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

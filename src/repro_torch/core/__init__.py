@@ -13,6 +13,9 @@ in the JAX package's ``repro.core``:
   engine      unified execution engine: plan -> place -> execute -> extract
   multispec   N specs in one spec-stacked pass
   macro       spec -> design -> PPA roll-up (+ silicon calibration)
+  netlist     RTL / structural netlist emission
+  gatesim     functional gate-level simulation of synthesized trees
+  layout      SDP-style structured placement (DEF, SDP script)
   dse         system-level workload -> macro-array mapping, co-design
 """
 
@@ -27,11 +30,14 @@ from .dse import (AcceleratorReport, CodesignReport, GemmShape,
                   gemm_inventory, map_gemm)
 from .engine import (ExecutionPlan, PackedGroup, Placement, Strategy,
                      execute, extract_frontier, register_strategy)
+from .gatesim import simulate, verify_tree
+from .layout import Floorplan, Region, emit_def, emit_sdp_script, place
 from .macro import (MacroDesign, MacroPPA, MacroSpec, at_voltage,
                     calibrated_tech_for_reference, pareto_experiment_spec,
                     reference_chip_design, reference_chip_ppa,
                     reference_chip_spec, reporting_frequency, rollup,
                     timing_paths)
+from .netlist import emit_verilog, tree_netlist
 from .multispec import (design_space_sweep_many, evaluate_many,
                         frontier_union, mso_search_many, scenario_specs)
 from .pareto import (PARETO_EPS, dominates, nondominated_mask,
@@ -52,6 +58,9 @@ __all__ = [
     "cross_workload_codesign", "gemm_inventory", "map_gemm",
     "ExecutionPlan", "PackedGroup", "Placement", "Strategy", "execute",
     "extract_frontier", "register_strategy",
+    "simulate", "verify_tree",
+    "Floorplan", "Region", "emit_def", "emit_sdp_script", "place",
+    "emit_verilog", "tree_netlist",
     "MacroDesign", "MacroPPA", "MacroSpec", "at_voltage",
     "calibrated_tech_for_reference", "pareto_experiment_spec",
     "reference_chip_design", "reference_chip_ppa", "reference_chip_spec",

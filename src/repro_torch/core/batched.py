@@ -771,7 +771,11 @@ def _finish(lattice: DesignLattice, tables: SpecTables, csa_i: np.ndarray,
     return BatchedPPA(lattice=lattice, tables=tables, mac=mac,
                       sa=sa_p, ofu=ofu_p, crit=crit,
                       fmax=fmax, meets=meets, area=area,
-                      breakdown=out["breakdown"], e_cycle=e_cycle,
+                      # key-sorted, as the reference's jitted kernel returns
+                      # it: the frontier artifact's bytes and the floorplan's
+                      # ``sum`` over it follow this order.
+                      breakdown=dict(sorted(out["breakdown"].items())),
+                      e_cycle=e_cycle,
                       latency=latency, tops_1b=tops_1b, tops_w=tops_w,
                       tops_mm2=tops_mm2)
 

@@ -29,7 +29,7 @@ Execution strategies live in a registry (:data:`STRATEGIES`,
 
 The JAX package's device-sharded strategies (``"sharded-jit"``, ``"pmap"``,
 ``"multihost"``) belong to the port's sharded slice (ROADMAP queue 1,
-item 5); asking for them raises :class:`NotImplementedError`.
+item 4); asking for them raises :class:`NotImplementedError`.
 
 Execution is observable: :func:`add_execute_hook` registers a callback fired
 once per :func:`execute` call with the plan being run, and
@@ -54,7 +54,7 @@ from .pareto import pareto_indices
 from .tech import TechModel
 
 #: Where the device-sharded engine modes are queued.
-_SHARDED_QUEUE_ITEM = ("ROADMAP.md queue 1, item 5 (core/shardspec.py and "
+_SHARDED_QUEUE_ITEM = ("ROADMAP.md queue 1, item 4 (core/shardspec.py and "
                        "core/multihost.py)")
 
 #: Engine modes of the JAX package that wait for the sharded slice.
@@ -156,6 +156,11 @@ class Placement:
 
     mode: str
     device: torch.device
+
+    @property
+    def n_dev(self) -> int:
+        """Devices the placement spans: one, until the sharded engine."""
+        return 1
 
 
 @dataclass(frozen=True)

@@ -68,9 +68,12 @@ def ref_spec(spec):
 def ppa_key(p) -> str:
     """Every scalar PPA field of a MacroPPA as text (``repr`` of a float
     round-trips, so equal text is equal bits) — the field set of the
-    reference harness's ``assert_ppa_equal``."""
+    reference harness's ``assert_ppa_equal``.  The area breakdown is read in
+    key order: the batched paths of both packages return it key-sorted, as
+    the JAX package's jitted roll-up does, the scalar roll-up in insertion
+    order; its values are compared bit for bit either way."""
     return repr((p.design.name(), dataclasses.asdict(p.paths), p.fmax_hz,
-                 p.area_um2, p.area_breakdown, p.e_cycle_fj,
+                 p.area_um2, sorted(p.area_breakdown.items()), p.e_cycle_fj,
                  p.latency_cycles, p.tops_1b, p.tops_per_w_1b,
                  p.tops_per_mm2_1b, p.meets_timing))
 
@@ -428,7 +431,8 @@ class TestDeviceContract:
 
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                     (REPO / "src" / "repro_torch").rglob("*.py")) \
-    + ["chip_smoke.py", "scripts/torch_profile_kernels.py"]
+    + ["chip_smoke.py", "scripts/torch_profile_kernels.py",
+       "scripts/torch_warm_cache.py", "examples/torch_quickstart.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -452,7 +456,15 @@ class TestImportHygiene:
                     "src/repro_torch/kernels/timing.py",
                     "src/repro_torch/roofline/hw.py",
                     "src/repro_torch/roofline/dcim.py",
-                    "scripts/torch_profile_kernels.py"):
+                    "src/repro_torch/core/gatesim.py",
+                    "src/repro_torch/core/netlist.py",
+                    "src/repro_torch/core/layout.py",
+                    "src/repro_torch/service/service.py",
+                    "src/repro_torch/service/frontend.py",
+                    "src/repro_torch/serve/select.py",
+                    "scripts/torch_profile_kernels.py",
+                    "scripts/torch_warm_cache.py",
+                    "examples/torch_quickstart.py"):
             assert rel in PORT_FILES
 
     @pytest.mark.parametrize("rel", PORT_FILES)

@@ -506,3 +506,85 @@ def test_profile_kernel_on_the_card(cuda_device, kernel, shape):
     assert p.t_copy_us > 0 and p.t_fused_us > 0
     assert p.t_compute_us > 0 or kernel == "csa_tree"
     assert 0 < p.roofline_fraction <= 1
+
+
+# -- the synthesis service and the layout tail on the card -------------------
+
+def test_get_service_builds_on_the_card(cuda_device):
+    """The process-wide service resolves the card once, and its fused pass
+    equals the same pass on the CPU bit for bit."""
+    from repro_torch.core.macro import MacroSpec
+    from repro_torch.service import (SynthesisRequest, SynthesisService,
+                                     get_service, reset_service)
+    from repro_torch.service.artifacts import result_to_payload
+
+    reset_service()
+    try:
+        svc = get_service()
+        assert svc is get_service()
+        assert svc.device.type == "cuda" and svc.device.index is not None
+        reqs = [SynthesisRequest(spec=s, resolution=3)
+                for s in list(C.scenario_specs().values())
+                + [MacroSpec(h=32, w=32, mcr=2)]]
+        got = svc.serve(reqs)
+        assert svc.stats.fused_passes == 1
+        want = SynthesisService(device="cpu").serve(reqs)
+        assert [result_to_payload(r.result) for r in got] == \
+            [result_to_payload(r.result) for r in want]
+    finally:
+        reset_service()
+
+
+@pytest.mark.parametrize("kernel,shape", [("dcim_mac", (128, 512, 512)),
+                                          ("ssm_scan", (1024, 256)),
+                                          ("csa_tree", (256, 512))])
+def test_tile_config_auto_resolves_from_the_registry(cuda_device, tmp_path,
+                                                     kernel, shape):
+    """A tuning published to an ``ArtifactRegistry`` is what a cold
+    process's ``tile_config="auto"`` launches with."""
+    from repro_torch.service import ArtifactRegistry
+
+    registry = ArtifactRegistry(tmp_path)
+    autotune.clear_memo()
+    try:
+        res = autotune.autotune(kernel, shape, iters=2, registry=registry,
+                                memoize=False)
+        autotune.set_registry(ArtifactRegistry(tmp_path))
+        counter = get_registry().counter(
+            f"kernel/{kernel}/tile_source/registry")
+        before = counter.value
+        if kernel == "dcim_mac":
+            a, w, s_a, s_w = operands(*shape, seed=0, device=cuda_device)
+            got = dcim_matmul(a, w, s_a, s_w, tile_config="auto")
+            want = ref.dcim_matmul_ref(a, w, s_a, s_w)
+        elif kernel == "ssm_scan":
+            a, b, h0 = ssm_inputs(*shape, seed=0)
+            got = ssm_scan(a, b, h0, tile_config="auto")[0]
+            want = ssm_scan_chunked_ref(a, b, h0, ssm_chunks(*shape)[0])[0]
+        else:
+            x = csa_stack(*shape, seed=0)
+            got = csa_tree_sum(x, tile_config="auto")
+            want = csa_tree_ref(x)
+        assert counter.value == before + 1
+        assert autotune.lookup(kernel, shape) == res.winner
+        assert torch.equal(got.cpu(), want.cpu())
+    finally:
+        autotune.set_registry(None)
+        autotune.clear_memo()
+
+
+@pytest.mark.parametrize("h", [1, 7, 32, 64, 129, 256])
+@pytest.mark.parametrize("fam_i", [0, 12, 19])
+def test_csa_tree_equals_gate_level_simulation(cuda_device, h, fam_i):
+    """The adder-tree kernel against a second oracle: the gate-level
+    simulation of the netlist its Fig. 4 schedule mirrors, on operands
+    bounded so that no int32 sum wraps."""
+    from repro_torch.core import build_netlist, gatesim
+    from repro_torch.core.csa import FAMILY
+
+    rng = np.random.default_rng(h * 31 + fam_i)
+    ops = rng.integers(-(2 ** 31) // 512, 2 ** 31 // 512, size=(h, 1000))
+    want = gatesim.simulate(build_netlist(FAMILY[fam_i], h), ops)
+    got = csa_tree_sum(torch.as_tensor(ops, dtype=torch.int32,
+                                       device=cuda_device))
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), want)
