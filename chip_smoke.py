@@ -60,7 +60,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                then one ``tile_config="auto"`` call of each entry point,
                which must read the tuner's memo;
   7. profile   the kernels' profiling skeletons (``dcim_mac`` copy and
-               compute, ``csa_tree`` copy, ``ssm_scan`` copy and compute)
+               compute at int32, float32 and bfloat16, ``csa_tree`` copy,
+               ``ssm_scan`` copy and compute)
                first held bit for bit against their plain versions at the
                main-path shapes (the six qwen3-4b GEMMs, the wk product
                stack on the tiled route, the zamba2 state and (4096, 256))
@@ -96,11 +97,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
                check, and ``csa_tree_sum`` on the card equals
                ``gatesim.simulate`` of its netlist at its 64 rows and at
                256; ``examples/torch_quickstart.py`` prints ``PASS``;
- 10. report    one ``{"kernels": [...]}`` line, then as the last line
+ 10. model     the port's model zoo serving qwen3-4b at its full width (36
+               layers, 4.41e9 parameters, bf16) drawn on the card from a
+               generator seeded 0: prefill of 4 x 64 tokens and 32 greedy
+               decode steps into a 96-token cache (times, tokens/s, peak
+               memory and the decode step's bound printed; logits finite,
+               of the right shapes); the cache check, prefill of 63 tokens
+               plus one decode step against the prefill of 64 at the last
+               position, in the config (within BF16_TOL_FRAC) and at full
+               width in float32 without fake-quant (within F32_TOL_FRAC),
+               the argmax kept wherever the top two are not tied within
+               the difference; the config at 2 layers in float32 on the
+               card against the CPU: without fake-quant the prefill logits
+               within F32_TOL_FRAC and 8 greedy tokens equal, with it every
+               weight's fake-quant equal and the first differing
+               activation quantizer call off by single code steps; and
+               ``python -m repro_torch.launch.serve --arch qwen3-4b
+               --dcim-select`` at the full config as a subprocess, cold
+               then warm on one frontier store, with the profile phase's
+               artifact: the service phase's pick and ``select_macros``'
+               tokens/s bound, one fused pass cold and none warm.  It
+               launches no hand-written kernel: the model's products are
+               ``torch.matmul`` of fake-quantised operands, as the JAX
+               model's are ``jnp.matmul``;
+ 11. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
-its main path and reads them just after; every kernel must have launched.
+its main path and reads them just after (phase 7 twice: K1 through
+``profile_kernel``, then K2, the float32 / bfloat16 ``dcim_mac`` skeletons,
+timed at the six qwen3-4b GEMMs); every kernel must have launched.
 
 It needs one CUDA card and exits non-zero without one, and when it does not
 sit at the root of a checkout of the repository.
@@ -108,6 +134,7 @@ sit at the root of a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1012,10 +1039,24 @@ SKELETON_KERNELS = {
 }
 
 
-def _skeleton_bound_ms(name: str, shape) -> tuple[float, str]:
+# K2, the float32 / bfloat16 skeletons of dcim_matmul_pipelined_pallas:
+# kernels-line name -> (mode, output dtype)
+SCALED_SKELETONS = {
+    "dcim_mac_tma_copy_f32": ("copy", "float32"),
+    "dcim_mac_tma_compute_f32": ("compute", "float32"),
+    "dcim_mac_tma_copy_bf16": ("copy", "bfloat16"),
+    "dcim_mac_tma_compute_bf16": ("compute", "bfloat16"),
+}
+SCALED_SITE = "src/repro/kernels/dcim_mac/kernel.py:239"
+
+
+def _skeleton_bound_ms(name: str, shape, out_bytes: int = 4,
+                       epilogue: bool = False) -> tuple[float, str]:
     """Least time of one skeleton call's work on the card, at the default
     tile: the bytes its token needs moved (inputs read once, outputs
-    written once) against the operations it needs, each at its peak."""
+    written once) against the operations it needs, each at its peak.  A
+    ``dcim_mac`` skeleton with the dequant ``epilogue`` also reads the
+    scales and makes two float32 products per output of ``out_bytes``."""
     from repro_torch.kernels.dcim_mac import mac_plan
     from repro_torch.kernels.ssm_scan import ssm_chunks
     from repro_torch.kernels.tiles import DEFAULT_TILES
@@ -1025,15 +1066,18 @@ def _skeleton_bound_ms(name: str, shape) -> tuple[float, str]:
         plan = mac_plan(m, k, n)
         if name.endswith("copy"):
             # A and W streamed, the token summed per strip, the output
-            nbytes = m * k + k * n + 4 * m * n
+            nbytes = m * k + k * n + out_bytes * m * n
             t_ops = (2 * plan.stages * plan.m_strips * plan.n_strips
                      / INT32_OPS_PER_S)
         else:
             # each split's first stage read, all its stages' products
             widths = [min(128, k - k0) for k0, _ in plan.k_ranges]
-            nbytes = sum((m + n) * wd for wd in widths) + 4 * m * n
+            nbytes = sum((m + n) * wd for wd in widths) + out_bytes * m * n
             t_ops = sum(2 * m * n * wd * (e - b) for wd, (b, e) in
                         zip(widths, plan.stage_ranges)) / INT8_OPS_PER_S
+        if epilogue:
+            nbytes += 4 * (m + n)
+            t_ops += 2 * m * n / F32_OPS_PER_S
     elif name.startswith("csa_tree"):
         h, n = shape
         bh = DEFAULT_TILES["csa_tree"].bh
@@ -1154,10 +1198,8 @@ def phase_profile(wk) -> tuple[list[dict], Path]:
         f"{PROFILE_RAGGED['ssm_scan']})")
 
     # -- the main path: profile_kernel at the main-path shapes --------------
-    counts = {"dcim_mac": mac_k.SKELETON_LAUNCHES,
-              "csa_tree": csa_k.SKELETON_LAUNCHES,
-              "ssm_scan": ssm_k.SKELETON_LAUNCHES}
-    for c in counts.values():
+    for c in [*mac_k.SKELETON_LAUNCHES.values(), csa_k.SKELETON_LAUNCHES,
+              ssm_k.SKELETON_LAUNCHES]:
         for key in c:
             c[key] = 0
     profiles = []
@@ -1171,6 +1213,10 @@ def phase_profile(wk) -> tuple[list[dict], Path]:
                 f"{p.t_fused_us:.3f} us, {p.bound}-bound, roofline fraction "
                 f"{p.roofline_fraction:.6f}")
     torch.cuda.synchronize()
+    counts = {"dcim_mac": {mode: c["int32"] for mode, c in
+                           mac_k.SKELETON_LAUNCHES.items()},
+              "csa_tree": csa_k.SKELETON_LAUNCHES,
+              "ssm_scan": ssm_k.SKELETON_LAUNCHES}
     launches = {name: counts[kernel][mode]
                 for name, (kernel, mode, _) in SKELETON_KERNELS.items()}
     log(f"profile: skeleton launches on the main path {launches}")
@@ -1212,7 +1258,96 @@ def phase_profile(wk) -> tuple[list[dict], Path]:
             f"{[p.shape for p in ps]}, plain {plain:.6f} ms, bound "
             f"{bound:.6f} ms, library "
             f"{'none' if library is None else f'{library:.6f} ms'}")
+    out += _profile_scaled(inputs["dcim_mac"], points["dcim_mac"],
+                           mac_tc.depth, g)
     return out, artifact
+
+
+def _profile_scaled(inputs: dict, shapes: list, depth: int, g) -> list[dict]:
+    """K2: the float32 / bfloat16 copy and compute skeletons at the
+    main-path GEMMs (and the ragged one), each output held bit for bit
+    against its plain version; then, with their launch counts reset, each
+    timed at the six GEMMs beside its plain version and bound.  Returns
+    their entries of the kernels line."""
+    import torch
+
+    from repro_torch.kernels.dcim_mac import kernel as mac_k
+    from repro_torch.kernels.dcim_mac import ref as mac_ref
+
+    plain_of = {"copy": mac_ref.dcim_mac_copy_scaled_ref,
+                "compute": mac_ref.dcim_mac_compute_scaled_ref}
+    args = {}
+    for (m, k, n), (a, w) in inputs.items():
+        a_s = torch.rand(m, generator=g, device="cuda") + 0.01
+        w_s = torch.rand(n, generator=g, device="cuda") + 0.01
+        args[(m, k, n)] = (a, w, a_s, w_s)
+
+    def kernel_call(name, a):
+        mode, dtype = SCALED_SKELETONS[name]
+        return mac_k.dcim_mac_cuda(*a, getattr(torch, dtype), depth=depth,
+                                   _mode=mode)
+
+    def plain_call(name, a):
+        mode, dtype = SCALED_SKELETONS[name]
+        return plain_of[mode](*a, getattr(torch, dtype))
+
+    err = {}
+    for name in SCALED_SKELETONS:
+        err[name] = 0.0
+        for shape, a in args.items():
+            got, want = kernel_call(name, a), plain_call(name, a)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"profile: {name} {shape}: {got.shape}/{got.dtype} vs "
+                  f"{want.shape}/{want.dtype}")
+            diff = (got.double() - want.double()).abs().max().item()
+            err[name] = max(err[name], diff)
+            check(torch.equal(got, want),
+                  f"profile: {name} {shape}: the skeleton differs from its "
+                  f"plain version (max |diff| {diff})")
+    log("profile: K2, the float32 and bfloat16 dcim_mac copy and compute "
+        "skeletons, equal their plain versions (the int32 token through "
+        "the dequant epilogue) bit for bit at the six qwen3-4b GEMMs and "
+        f"{PROFILE_RAGGED['dcim_mac']}")
+
+    # -- the main path: each skeleton at the six GEMMs, counts reset ---------
+    for counts in mac_k.SKELETON_LAUNCHES.values():
+        for key in counts:
+            counts[key] = 0
+    times = {name: [_time_ms(lambda n=name, a=args[s]: kernel_call(n, a))
+                    for s in shapes] for name in SCALED_SKELETONS}
+    torch.cuda.synchronize()
+    launches = {name: mac_k.SKELETON_LAUNCHES[mode][dtype]
+                for name, (mode, dtype) in SCALED_SKELETONS.items()}
+    log(f"profile: K2 launches on its run {launches}")
+    # K1 by the same timer, beside K2 (the kernels line keeps K1's times
+    # from profile_kernel)
+    for mode in ("copy", "compute"):
+        int32 = [_time_ms(lambda a=args[s]: mac_k.dcim_mac_int_cuda(
+            *a[:2], depth=depth, _mode=mode)) for s in shapes]
+        log(f"profile: dcim_mac_tma_{mode} (int32) by the same timer: "
+            f"{sum(int32):.6f} ms over the six GEMMs")
+    out = []
+    for name, (mode, dtype) in SCALED_SKELETONS.items():
+        size = torch.empty((), dtype=getattr(torch, dtype)).element_size()
+        bounds = [_skeleton_bound_ms(f"dcim_mac_{mode}", s, size, True)
+                  for s in shapes]
+        bound = sum(b for b, _ in bounds)
+        by_bytes = sum(b for b, by in bounds if by == "bytes")
+        plain = sum(_time_ms(lambda n=name, a=args[s]: plain_call(n, a),
+                             reps=3) for s in shapes)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/dcim_mac.cu",
+            "replaces": SCALED_SITE, "launches": launches[name],
+            "max_abs_err": err[name], "ms": sum(times[name]),
+            "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes" if by_bytes >= bound / 2 else "operations",
+            "library_ms": None})
+        log(f"profile: {name}: {out[-1]['ms']:.6f} ms over {shapes} "
+            f"(per GEMM {[round(x, 6) for x in times[name]]}), plain "
+            f"{plain:.6f} ms, bound {bound:.6f} ms, library none")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1283,11 +1418,12 @@ def _same_result(a, b) -> bool:
             == [_ppa_repr(p) for p in b.explored])
 
 
-def phase_service(results: dict, serving: dict) -> None:
+def phase_service(results: dict, serving: dict) -> str:
     """The serving path on the card, held against the compiler and serving
     phases' results (themselves held bit for bit against ``device="cpu"``):
     cold and warm launches of the service behind its frontend, the tile
-    registry, macro selection and the layout tail (module doc, phase 9)."""
+    registry, macro selection and the layout tail (module doc, phase 9).
+    Returns the qwen3-4b pick's label."""
     import shutil
 
     import torch
@@ -1498,6 +1634,312 @@ def phase_service(results: dict, serving: dict) -> None:
           f"{proc.stderr[-2000:]}")
     log(f"service: examples/torch_quickstart.py on the card: "
         f"{time.perf_counter() - t0:.3f} s, {lines[-1]}")
+    return sel.label_for("qwen3-4b")
+
+
+# ---------------------------------------------------------------------------
+# 10. model
+# ---------------------------------------------------------------------------
+
+# The serving cell: qwen3-4b at its full width, 4 prompts of 64 tokens,
+# 32 greedy decode steps into a 96-token cache.
+MODEL_BATCH, MODEL_PROMPT, MODEL_DECODE = 4, 64, 32
+MODEL_CACHE = MODEL_PROMPT + MODEL_DECODE
+# Tolerances of the model phase, as shares of the reference logits' largest
+# magnitude.  A bfloat16 path rounds to 8 bits of mantissa after every op
+# and through 36 layers of fake-quant; a float32 path without fake-quant
+# differs only by the order of float32 sums (TF32 off).  Wherever every
+# logit moves by at most d, a row's argmax can change only if its top two
+# differ by at most 2 d: rows with a wider gap must keep their argmax, and
+# the others are ties within the two paths' rounding, printed.
+BF16_TOL_FRAC = 0.1
+F32_TOL_FRAC = 1e-4
+
+
+def _launch_serve(args: list[str]) -> list[str]:
+    """``python -m repro_torch.launch.serve`` on the card in a subprocess;
+    its output lines."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
+                          + args, capture_output=True, text=True,
+                          timeout=600, cwd=ROOT, env=env)
+    check(proc.returncode == 0,
+          f"launch.serve failed: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    return proc.stdout.splitlines()
+
+
+def _same_logits(got, want, tol_frac: float, what: str) -> None:
+    """``got`` within ``tol_frac`` of ``want``'s largest magnitude, and the
+    same argmax in every row whose top-two gap exceeds twice the largest
+    difference (module constants)."""
+    import torch
+
+    d = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    top = want.topk(2, -1).values
+    decisive = (top[:, 0] - top[:, 1]) > 2 * d
+    same = got.argmax(-1) == want.argmax(-1)
+    log(f"model: {what}: max |diff| {d:.6g} of max |logit| {scale:.6f} "
+        f"(tolerance {tol_frac} of it); argmax {got.argmax(-1).tolist()} / "
+        f"{want.argmax(-1).tolist()}; rows with a top-two gap within 2 x "
+        f"max |diff| (ties): {(~decisive).nonzero().flatten().tolist()}")
+    check(d <= tol_frac * scale and bool(torch.all(same | ~decisive)),
+          f"model: {what}: the logits differ")
+
+
+@contextlib.contextmanager
+def _recording_codes(codes: list):
+    """A context in which every ``quantize_int`` call appends its int8
+    codes (on the host) to ``codes``."""
+    import repro_torch.quant.quantizers as Q
+
+    orig = Q.quantize_int
+
+    def rec(*a, **k):
+        q, s = orig(*a, **k)
+        codes.append(q.cpu())
+        return q, s
+
+    Q.quantize_int = rec
+    try:
+        yield
+    finally:
+        Q.quantize_int = orig
+
+
+def _first_flip(got: list, want: list):
+    """(call, codes flipped, codes) of the first quantizer call whose codes
+    differ, or None; every difference there must be one code step."""
+    check(len(got) == len(want), f"model: {len(got)} quantizer calls "
+          f"against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        d = (a.int() - b.int()).abs()
+        if d.any():
+            check(d.max().item() == 1, f"model: quantizer call {i}: codes "
+                  f"differ by {d.max().item()} steps")
+            return i, int(d.ne(0).sum()), d.numel()
+    return None
+
+
+def phase_model(pick: str, artifact: Path) -> None:
+    """The port's model zoo on the card (module doc, phase 10): qwen3-4b
+    at full width through prefill and greedy decode, the decode cache held
+    against a longer prefill, the card against the CPU at 2 full-width
+    layers in float32, and the serving launcher, cold then warm."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import gemm_inventory
+    from repro_torch.kernels.profile import fraction_from_profile_artifact
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.quant import fake_quant
+    from repro_torch.serve import (greedy_generate, make_decode_step,
+                                   make_prefill, select_macros)
+    from repro_torch.serve.step import greedy_argmax
+    from repro_torch.service import FrontierCache, SynthesisService
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    cfg = get_config("qwen3-4b")
+    api = get_model(cfg)
+
+    # -- 1. full width: init, prefill, 32 greedy decode steps ---------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = api.init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                            device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    check(len(model.blocks) == 36 and n_params > 4.41e9,
+          f"model: {len(model.blocks)} layers, {n_params} parameters")
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (MODEL_BATCH, MODEL_PROMPT)),
+                              device="cuda")
+    prefill = make_prefill(api, MODEL_CACHE)
+    decode = make_decode_step(api)
+    # one untimed pass first: cuBLAS handles and first launches
+    _, warm = prefill(model, prompts)
+    decode(model, warm, prompts[:, :1])
+    del warm
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    logits, state = prefill(model, prompts)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    check(logits.shape == (MODEL_BATCH, MODEL_PROMPT, cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()),
+          f"model: prefill logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    last = logits[:, -1].float()
+    tok = greedy_argmax(logits)
+    out = [tok]
+    steps = []
+    t0 = time.perf_counter()
+    for _ in range(MODEL_DECODE):
+        logits, state = decode(model, state, tok)
+        tok = greedy_argmax(logits)
+        out.append(tok)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    check(int(state["pos"]) == MODEL_CACHE
+          and all(x.shape == (MODEL_BATCH, 1, cfg.vocab_padded)
+                  for x in steps)
+          and bool(torch.isfinite(torch.cat(steps, 1)).all()),
+          "model: decode logits of the wrong shape or not finite")
+    tokens = torch.cat(out, 1).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"model: {card}")
+    log(f"model: qwen3-4b full width ({len(model.blocks)} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.param_dtype}): "
+        f"{n_params} "
+        f"parameters, {weight_bytes} bytes, drawn on the card in "
+        f"{t_init:.3f} s")
+    log(f"model: prefill {MODEL_BATCH}x{MODEL_PROMPT} tokens "
+        f"{t_prefill * 1e3:.3f} ms; decode {MODEL_DECODE} steps "
+        f"{t_decode * 1e3:.3f} ms, {t_decode * 1e3 / MODEL_DECODE:.3f} ms "
+        f"per step, {MODEL_BATCH * MODEL_DECODE / t_decode:.1f} tokens/s; "
+        f"bound {bound_ms:.3f} ms per step (every weight byte read once at "
+        f"3.35 TB/s); peak memory {peak} bytes")
+    log(f"model: first 16 tokens of row 0: {tokens[0, :16].tolist()}")
+
+    # -- 2. the cache: prefill S - 1 and one decode step against prefill S --
+    def cache_check(api, model, want, tol, what):
+        _, st = api.prefill(model, prompts[:, :-1], MODEL_PROMPT)
+        got, _ = api.decode_step(model, st, prompts[:, -1:])
+        _same_logits(got[:, -1].float(), want, tol,
+                     f"cache check, {what}: prefill {MODEL_PROMPT - 1} + "
+                     f"1 decode step against prefill {MODEL_PROMPT}")
+
+    cache_check(api, model, last, BF16_TOL_FRAC,
+                "the config (bf16, fake-quant)")
+    del model, logits, steps, out, state
+    torch.cuda.empty_cache()
+    # the same at full width in float32 without fake-quant, where the two
+    # paths differ only by the order of float32 sums
+    api32 = get_model(cfg.replace(param_dtype="float32",
+                                  compute_dtype="float32",
+                                  dcim_enabled=False))
+    exact = api32.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    want, _ = api32.prefill(exact, prompts, MODEL_PROMPT)
+    cache_check(api32, exact, want[:, -1].float(), F32_TOL_FRAC,
+                "float32, fake-quant off")
+    del exact, want
+    torch.cuda.empty_cache()
+
+    # -- 3. card against CPU at 2 full-width layers, float32 ----------------
+    cfg2 = cfg.replace(n_layers=2, param_dtype="float32",
+                       compute_dtype="float32")
+    small = prompts[:2, :32]
+    t0 = time.perf_counter()
+    for dcim in (False, True):
+        api2 = get_model(cfg2.replace(dcim_enabled=dcim))
+        gpu = api2.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+        cpu = Transformer(api2.cfg, device="cpu")
+        cpu.load_state_dict(gpu.state_dict())
+        if dcim:
+            # the quantizer on the card equals the CPU's on every weight
+            linears = [(name, wg, wc) for (name, wg), wc in
+                       zip(gpu.named_parameters(), cpu.parameters())
+                       if name.endswith(".w") and name.startswith("blocks")]
+            for name, wg, wc in linears:
+                check(torch.equal(fake_quant(wg, 8, 0).cpu(),
+                                  fake_quant(wc, 8, 0)),
+                      f"model: fake_quant of {name} on the card differs "
+                      "from the CPU's")
+        codes = [], []
+        with _recording_codes(codes[0]):
+            got, _ = api2.prefill(gpu, small, 40)
+        with _recording_codes(codes[1]):
+            want, _ = api2.prefill(cpu, small.cpu(), 40)
+        flip = _first_flip(*codes)
+        what = (f"card against CPU, 2 full-width layers in float32, "
+                f"fake-quant {'on' if dcim else 'off'}, prompts 2x32")
+        if not dcim:
+            _same_logits(got[:, -1].cpu(), want[:, -1], F32_TOL_FRAC, what)
+            check(flip is None, f"model: {what}: codes differ")
+            gen = [greedy_generate(api2, m, x, 8).cpu() for m, x in
+                   ((gpu, small), (cpu, small.cpu()))]
+            log(f"model: {what}: 8 greedy tokens {gen[0].tolist()} / "
+                f"{gen[1].tolist()}")
+            check(torch.equal(gen[0], gen[1]),
+                  "model: the card's greedy tokens differ from the CPU's")
+        else:
+            # one weight code step moves an activation by 1/127 of its
+            # row's range, and random weights carry it through; the
+            # first differing quantizer call must differ by single steps
+            d = (got.cpu() - want).abs().max().item()
+            log(f"model: {what}: weight fake-quant equal on all "
+                f"{len(linears)} linears; first activation flip "
+                f"{'none' if flip is None else flip} (call, codes "
+                f"flipped, codes); logits max |diff| {d:.6f} of "
+                f"{want.abs().max().item():.6f}")
+        del gpu, cpu, got, want
+        torch.cuda.empty_cache()
+    log(f"model: card against CPU: {time.perf_counter() - t0:.3f} s")
+
+    # -- 4. the launcher at the full config, cold then warm -----------------
+    work = ROOT / "build" / "model"
+    shutil.rmtree(work, ignore_errors=True)
+    args = ["--arch", "qwen3-4b", "--dcim-select", "--dcim-cache",
+            str(work / "cache"), "--dcim-kernel-profile", str(artifact),
+            "--batch", str(MODEL_BATCH), "--prompt-len", str(MODEL_PROMPT),
+            "--decode-steps", str(MODEL_DECODE)]
+    fraction = fraction_from_profile_artifact(artifact)
+    sel = None
+    for launch in ("cold", "warm"):
+        t0 = time.perf_counter()
+        lines = _launch_serve(args)
+        wall = time.perf_counter() - t0
+        for line in lines:
+            log(f"  {line}")
+        service = [ln for ln in lines if ln.startswith("dcim: synthesis")]
+        check(len(service) == 1 and (
+            "cold (hits=0 misses=4 fused_passes=1" in service[0]
+            if launch == "cold" else
+            "warm (hits=4 misses=0 fused_passes=0" in service[0]),
+            f"model: {launch} launch: {service}")
+        if sel is None:
+            # select_macros as the launcher calls it, from its warm store
+            sel = select_macros(
+                {cfg.name: gemm_inventory(cfg)}, kernel_fraction=fraction,
+                service=SynthesisService(
+                    cache=FrontierCache(store_dir=work / "cache")))
+        label = sel.label_for(cfg.name)
+        check(f"dcim: selected {label} for {cfg.name} " in "\n".join(lines)
+              and label == pick,
+              f"model: launch selected other than the service phase's "
+              f"{pick} / select_macros' {label}")
+        check(f"dcim: serving roofline "
+              f"{sel.serving_for(cfg.name).tokens_per_s:.1f} tok/s"
+              in "\n".join(lines),
+              "model: the launch's serving roofline differs from "
+              "select_macros'")
+        check(sum(ln.startswith(("prefill: ", "decode : ")) and
+                  ln.endswith(f" on {torch.cuda.get_device_name(0)}")
+                  for ln in lines) == 2,
+              "model: the launch's times do not name the card")
+        log(f"model: launch.serve {launch}: {wall:.3f} s; selected {label} "
+            f"(== the service phase's pick), "
+            f"{sel.serving_for(cfg.name).tokens_per_s!r} tok/s at kernel "
+            f"fraction {fraction!r} (== select_macros')")
 
 
 def main() -> int:
@@ -1532,12 +1974,15 @@ def main() -> int:
     t7 = time.perf_counter()
     serving = phase_serving(chosen["results"], artifact)
     t8 = time.perf_counter()
-    phase_service(chosen["results"], serving)
+    pick = phase_service(chosen["results"], serving)
     t9 = time.perf_counter()
+    phase_model(pick, artifact)
+    t10 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"mac {t3 - t2:.3f} s, csa {t4 - t3:.3f} s, ssm {t5 - t4:.3f} s, "
         f"autotune {t6 - t5:.3f} s, profile {t7 - t6:.3f} s, serving "
-        f"{t8 - t7:.3f} s, service {t9 - t8:.3f} s")
+        f"{t8 - t7:.3f} s, service {t9 - t8:.3f} s, model "
+        f"{t10 - t9:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

@@ -88,13 +88,14 @@
 // __grid_constant__ parameters.
 //
 // Profiling skeletons (kernels/profile.py; the TPU kernel's _mode of
-// _pipelined_mac_body, dcim_matmul_int_pipelined_pallas): the TMA kernel's
-// MODE template parameter, int32 output only, compiled with -DSKELETONS
-// into a library of their own (kernels/build.py) so that the main path's
-// build is unchanged.  Both keep the plan, the clusters, the K-split DSMEM
-// reduction and the store of the fused kernel (FUSED); what each computes
-// is its data token, defined by its plain version in
-// kernels/dcim_mac/ref.py:
+// _pipelined_mac_body, dcim_matmul_int_pipelined_pallas and
+// dcim_matmul_pipelined_pallas): the TMA kernel's MODE template parameter
+// at every output KIND, compiled with -DSKELETONS into a library of their
+// own (kernels/build.py) so that the main path's build is unchanged.  Both
+// keep the plan, the clusters, the K-split DSMEM reduction and the store of
+// the fused kernel (FUSED), the f32/bf16 kinds with its dequant epilogue;
+// what each computes is its data token (through that epilogue), defined by
+// its plain version in kernels/dcim_mac/ref.py:
 //   COPY     the producer streams every stage of both rings as the fused
 //            kernel does; the consumers wait on each stage's full barriers
 //            and release it at once (no transposes, no wgmma), adding the
@@ -962,20 +963,28 @@ extern "C" {
 #ifdef SKELETONS
 
 // The TMA kernel's profiling skeleton `mode` (1 COPY, 2 COMPUTE) of the
-// int32 product of (M,K) int8 and (K,N) int8 on `stream`, with the
-// arguments of dcim_mac_tma: its data token into `out` (M,N) int32.
-// Returns the CUDA error code of the launch (0 on success).
-int dcim_mac_tma_skeleton(const void* a, const void* w, void* out, int M,
-                          int K, int N, int mode, int depth, int splits,
+// product of (M,K) int8 and (K,N) int8 on `stream`, with the arguments of
+// dcim_mac_tma: its data token into `out` (M,N), `kind` 0 as int32, 1 as
+// float32 and 2 as bfloat16 through the dequant epilogue (a_scale M
+// floats, w_scale N floats; unused for kind 0).  Returns the CUDA error
+// code of the launch (0 on success).
+int dcim_mac_tma_skeleton(const void* a, const void* w, const void* a_scale,
+                          const void* w_scale, void* out, int M, int K,
+                          int N, int kind, int mode, int depth, int splits,
                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case COPY:
-      return tma::launch_depth<OUT_I32, COPY>(a, w, nullptr, nullptr, out, M,
-                                              K, N, depth, splits, s);
-    case COMPUTE:
-      return tma::launch_depth<OUT_I32, COMPUTE>(a, w, nullptr, nullptr, out,
-                                                 M, K, N, depth, splits, s);
+  switch (kind * 4 + mode) {
+#define DCIM_MAC_SKELETON(KIND, MODE)                                        \
+  case KIND * 4 + MODE:                                                      \
+    return tma::launch_depth<KIND, MODE>(a, w, a_scale, w_scale, out, M, K,  \
+                                         N, depth, splits, s);
+    DCIM_MAC_SKELETON(OUT_I32, COPY)
+    DCIM_MAC_SKELETON(OUT_I32, COMPUTE)
+    DCIM_MAC_SKELETON(OUT_F32, COPY)
+    DCIM_MAC_SKELETON(OUT_F32, COMPUTE)
+    DCIM_MAC_SKELETON(OUT_BF16, COPY)
+    DCIM_MAC_SKELETON(OUT_BF16, COMPUTE)
+#undef DCIM_MAC_SKELETON
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

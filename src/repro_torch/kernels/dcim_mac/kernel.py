@@ -12,14 +12,17 @@ under the function and the route.  They take CUDA tensors only: the
 wrappers in :mod:`repro_torch.kernels.dcim_mac.ops` route CPU tensors to
 the plain versions.
 
-``dcim_mac_int_cuda``'s ``_mode`` (the JAX functions' profiling argument)
-picks the TMA kernel's profiling skeletons, ``copy`` and ``compute``
-(:mod:`repro_torch.kernels.profile`): built at first use from the same
-source as a library of their own (:func:`~repro_torch.kernels.build.
-build_library`, variant ``skeletons``), launched at any M on operands TMA
-can describe, and counted in :data:`SKELETON_LAUNCHES`.  Their outputs are
+``_mode`` of ``dcim_mac_int_cuda`` and ``dcim_mac_cuda`` (the JAX
+functions' profiling argument) picks the TMA kernel's profiling skeletons,
+``copy`` and ``compute`` (:mod:`repro_torch.kernels.profile`), at the
+function's output kind: int32, or float32 / bfloat16 through the dequant
+epilogue.  They are built at first use from the same source as a library of
+their own (:func:`~repro_torch.kernels.build.build_library`, variant
+``skeletons``), launched at any M on operands TMA can describe, and counted
+in :data:`SKELETON_LAUNCHES` by mode and output dtype.  Their outputs are
 data tokens, not products (``ref.dcim_mac_copy_ref``,
-``ref.dcim_mac_compute_ref``).
+``ref.dcim_mac_compute_ref``; through the epilogue,
+``ref.dcim_mac_copy_scaled_ref`` and ``ref.dcim_mac_compute_scaled_ref``).
 """
 
 from __future__ import annotations
@@ -41,8 +44,11 @@ from .plan import mac_plan, mac_route, tma_describable
 LAUNCHES = {"dcim_mac_int": {"pipelined": 0, "grid": 0},
             "dcim_mac": {"pipelined": 0, "grid": 0}}
 
-#: Launches of the TMA kernel's profiling skeletons, by mode.
-SKELETON_LAUNCHES = {"copy": 0, "compute": 0}
+#: Launches of the TMA kernel's profiling skeletons, by mode and output
+#: dtype (``int32``: ``dcim_mac_int_cuda``; ``float32`` / ``bfloat16``:
+#: ``dcim_mac_cuda``, through the epilogue).
+SKELETON_LAUNCHES = {mode: {"int32": 0, "float32": 0, "bfloat16": 0}
+                     for mode in ("copy", "compute")}
 
 #: The profiling modes of ``_mode`` and the C functions' mode numbers.
 MODES = ("fused", "copy", "compute")
@@ -80,7 +86,7 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _skeleton_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library("dcim_mac", SKELETONS)))
-    lib.dcim_mac_tma_skeleton.argtypes = [_P] * 3 + [_I] * 6 + [_P]
+    lib.dcim_mac_tma_skeleton.argtypes = [_P] * 5 + [_I] * 7 + [_P]
     lib.dcim_mac_tma_skeleton.restype = _I
     lib.dcim_mac_error_string.argtypes = [_I]
     lib.dcim_mac_error_string.restype = ctypes.c_char_p
@@ -161,9 +167,11 @@ def _launch(name: str, a_q: torch.Tensor, w_q: torch.Tensor,
 
 
 def _launch_skeleton(mode: str, a_q: torch.Tensor, w_q: torch.Tensor,
-                     out: torch.Tensor, depth: int) -> None:
-    """Launch the TMA kernel's ``mode`` skeleton into ``out`` and count
-    it."""
+                     a_scale: torch.Tensor | None,
+                     w_scale: torch.Tensor | None, out: torch.Tensor,
+                     depth: int) -> None:
+    """Launch the TMA kernel's ``mode`` skeleton into ``out`` (with the
+    epilogue when scales are given) and count it."""
     (m, k), n = a_q.shape, w_q.shape[1]
     if not tma_describable(k, n, a_q.data_ptr(), w_q.data_ptr()):
         raise ValueError(
@@ -177,14 +185,16 @@ def _launch_skeleton(mode: str, a_q: torch.Tensor, w_q: torch.Tensor,
     lib = _skeleton_lib()
     with torch.cuda.device(a_q.device):
         err = lib.dcim_mac_tma_skeleton(
-            a_q.data_ptr(), w_q.data_ptr(), out.data_ptr(), m, k, n,
-            _SKELETON_MODE[mode], depth, mac_plan(m, k, n).splits,
-            _stream(a_q))
+            a_q.data_ptr(), w_q.data_ptr(),
+            a_scale.data_ptr() if a_scale is not None else None,
+            w_scale.data_ptr() if w_scale is not None else None,
+            out.data_ptr(), m, k, n, _KIND[out.dtype], _SKELETON_MODE[mode],
+            depth, mac_plan(m, k, n).splits, _stream(a_q))
     if err != 0:
         msg = lib.dcim_mac_error_string(err).decode()
         raise RuntimeError(f"dcim_mac_tma {mode} skeleton launch failed: "
                            f"CUDA error {err} ({msg})")
-    SKELETON_LAUNCHES[mode] += 1
+    SKELETON_LAUNCHES[mode][str(out.dtype).removeprefix("torch.")] += 1
 
 
 def dcim_mac_int_cuda(a_q: torch.Tensor, w_q: torch.Tensor, *,
@@ -201,19 +211,23 @@ def dcim_mac_int_cuda(a_q: torch.Tensor, w_q: torch.Tensor, *,
     if _mode == "fused":
         _launch("dcim_mac_int", a_q, w_q, None, None, out, depth)
     else:
-        _launch_skeleton(_mode, a_q, w_q, out, depth)
+        _launch_skeleton(_mode, a_q, w_q, None, None, out, depth)
     return out
 
 
 def dcim_mac_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
                   a_scale: torch.Tensor, w_scale: torch.Tensor,
                   out_dtype: torch.dtype, *,
-                  depth: int = DEFAULT_TILES["dcim_mac"].depth
-                  ) -> torch.Tensor:
+                  depth: int = DEFAULT_TILES["dcim_mac"].depth,
+                  _mode: str = "fused") -> torch.Tensor:
     """(M,K) int8 @ (K,N) int8 with the dequant epilogue on the card:
     ``a_scale`` (M,) and ``w_scale`` (N,) contiguous float32 on the same
     device; ``out_dtype`` float32 or bfloat16; ``depth`` the TMA route's
-    ring depth."""
+    ring depth.  ``_mode`` ``copy`` or ``compute`` runs the TMA kernel's
+    profiling skeleton instead, at any M, and returns its data token through
+    the epilogue (see the module doc)."""
+    if _mode not in MODES:
+        raise ValueError(f"_mode must be one of {MODES}, got {_mode!r}")
     m, k, n = _check_operands(a_q, w_q)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
@@ -224,7 +238,10 @@ def dcim_mac_cuda(a_q: torch.Tensor, w_q: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous ({size},) float32 "
                              f"tensor on {a_q.device}")
     out = torch.empty((m, n), dtype=out_dtype, device=a_q.device)
-    _launch("dcim_mac", a_q, w_q, a_scale, w_scale, out, depth)
+    if _mode == "fused":
+        _launch("dcim_mac", a_q, w_q, a_scale, w_scale, out, depth)
+    else:
+        _launch_skeleton(_mode, a_q, w_q, a_scale, w_scale, out, depth)
     return out
 
 

@@ -22,7 +22,9 @@ Python scalars, as the Pallas kernels take them.
 
 The TMA kernel's profiling skeletons (``_mode``, :mod:`repro_torch.kernels.
 profile`) compute data tokens, not products; :func:`dcim_mac_copy_ref` and
-:func:`dcim_mac_compute_ref` define them.  The JAX package's skeletons
+:func:`dcim_mac_compute_ref` define them, and :func:`dcim_mac_copy_scaled_ref`
+and :func:`dcim_mac_compute_scaled_ref` the float32 / bfloat16 skeletons'
+outputs: the int32 token through :func:`dequant_epilogue`.  The JAX package's skeletons
 cannot stand in here: on its copy skeleton the token is one slot's first
 element, and its compute skeleton reads buffers that nothing filled (in
 interpret mode it returned 4,194,304 everywhere), so the port defines
@@ -65,11 +67,19 @@ def dcim_matmul_ref(a_q: torch.Tensor, w_q: torch.Tensor,
                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Exact integer matmul + dequant: (M,K)i8 @ (K,N)i8 -> (M,N)out_dtype,
     scaled by ``a_scale[m] * w_scale[n]`` (the scale product first)."""
-    m, n = a_q.shape[0], w_q.shape[1]
-    asc = scale_vector(a_scale, m, a_q.device)
-    wsc = scale_vector(w_scale, n, a_q.device)
+    return dequant_epilogue(_exact_matmul(a_q, w_q), a_scale, w_scale,
+                            out_dtype)
+
+
+def dequant_epilogue(acc: torch.Tensor, a_scale, w_scale,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """The Pallas kernels' epilogue on an (M,N) int32 accumulator:
+    ``f32(acc) * (a_scale[m] * w_scale[n])`` (the scale product first),
+    cast to ``out_dtype``."""
+    m, n = acc.shape
+    asc = scale_vector(a_scale, m, acc.device)
+    wsc = scale_vector(w_scale, n, acc.device)
     scale = asc[:, None] * wsc[None, :]
-    acc = _exact_matmul(a_q, w_q)
     return (acc.to(torch.float32) * scale).to(out_dtype)
 
 
@@ -158,3 +168,20 @@ def dcim_mac_compute_ref(a_q: torch.Tensor, w_q: torch.Tensor
         acc += (end - begin) * _exact_matmul(a_q[:, k0:k1],
                                              w_q[k0:k1]).to(torch.int64)
     return _wrap32(acc)
+
+
+def dcim_mac_copy_scaled_ref(a_q: torch.Tensor, w_q: torch.Tensor, a_scale,
+                             w_scale, out_dtype: torch.dtype) -> torch.Tensor:
+    """The float32 / bfloat16 copy skeleton's output: the copy token
+    through the dequant epilogue."""
+    return dequant_epilogue(dcim_mac_copy_ref(a_q, w_q), a_scale, w_scale,
+                            out_dtype)
+
+
+def dcim_mac_compute_scaled_ref(a_q: torch.Tensor, w_q: torch.Tensor,
+                                a_scale, w_scale, out_dtype: torch.dtype
+                                ) -> torch.Tensor:
+    """The float32 / bfloat16 compute skeleton's output: the compute token
+    through the dequant epilogue."""
+    return dequant_epilogue(dcim_mac_compute_ref(a_q, w_q), a_scale, w_scale,
+                            out_dtype)

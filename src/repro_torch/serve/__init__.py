@@ -1,14 +1,12 @@
-"""Serving-side DCIM configuration and macro selection.
-
-The JAX package's ``serve`` also holds ``step.py`` (``make_prefill``,
-``make_decode_step``, ``greedy_generate``); it comes with the port's model
-zoo (ROADMAP.md queue 1, item 7).
-"""
+"""Serving: the DCIM serving posture and macro selection (``config``,
+``select``), and the model's prefill and cached decode steps (``step``)."""
 
 from .config import (SERVE_CONFIG_SCHEMA, ServeConfig, load_serve_config,
                      parse_pref, save_serve_config, serve_config_from_args)
 from .select import MacroSelection, apply_profile, select_macros
+from .step import greedy_generate, make_decode_step, make_prefill
 
 __all__ = ["MacroSelection", "SERVE_CONFIG_SCHEMA", "ServeConfig",
            "apply_profile", "load_serve_config", "parse_pref",
-           "save_serve_config", "select_macros", "serve_config_from_args"]
+           "save_serve_config", "select_macros", "serve_config_from_args",
+           "make_decode_step", "make_prefill", "greedy_generate"]

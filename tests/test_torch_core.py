@@ -432,7 +432,8 @@ class TestDeviceContract:
 PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                     (REPO / "src" / "repro_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/torch_profile_kernels.py",
-       "scripts/torch_warm_cache.py", "examples/torch_quickstart.py"]
+       "scripts/torch_warm_cache.py", "examples/torch_quickstart.py",
+       "examples/torch_serve_decode.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -464,7 +465,14 @@ class TestImportHygiene:
                     "src/repro_torch/serve/select.py",
                     "scripts/torch_profile_kernels.py",
                     "scripts/torch_warm_cache.py",
-                    "examples/torch_quickstart.py"):
+                    "examples/torch_quickstart.py",
+                    "src/repro_torch/quant/quantizers.py",
+                    "src/repro_torch/models/layers.py",
+                    "src/repro_torch/models/transformer.py",
+                    "src/repro_torch/models/registry.py",
+                    "src/repro_torch/serve/step.py",
+                    "src/repro_torch/launch/serve.py",
+                    "examples/torch_serve_decode.py"):
             assert rel in PORT_FILES
 
     @pytest.mark.parametrize("rel", PORT_FILES)

@@ -1,7 +1,8 @@
 """The port on the CUDA card: the hand-written ``dcim_mac``, ``csa_tree``
 and ``ssm_scan`` kernels and their profiling skeletons against their plain
-torch versions, the tile autotuner's winners, the kernel profiler, and the
-compiler's device path against the CPU.
+torch versions, the tile autotuner's winners, the kernel profiler, the
+compiler's device path against the CPU, and the model zoo's smoke configs
+and serving launcher on the card.
 
 Every test here needs a card, carries the ``cuda`` marker and skips with a
 reason where none is visible (the kernel has no CPU mode).  The module
@@ -437,10 +438,30 @@ def test_dcim_mac_skeleton_equals_plain_version(cuda_device, mode, m, k, n,
     a, w, _, _ = operands(m, k, n, seed=m + k, device=cuda_device)
     plain = {"copy": ref.dcim_mac_copy_ref,
              "compute": ref.dcim_mac_compute_ref}[mode]
-    before = dict(mac_kernel.SKELETON_LAUNCHES)
+    before = {md: dict(c) for md, c in mac_kernel.SKELETON_LAUNCHES.items()}
     got = mac_kernel.dcim_mac_int_cuda(a, w, depth=depth, _mode=mode)
-    assert mac_kernel.SKELETON_LAUNCHES == {**before, mode: before[mode] + 1}
+    before[mode]["int32"] += 1
+    assert mac_kernel.SKELETON_LAUNCHES == before
     assert torch.equal(got, plain(a, w))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["copy", "compute"])
+@pytest.mark.parametrize("m,k,n", SKELETON_MAC_SHAPES)
+@pytest.mark.parametrize("depth", MAC_DEPTHS)
+def test_dcim_mac_scaled_skeleton_equals_plain_version(cuda_device, mode, m,
+                                                       k, n, depth,
+                                                       out_dtype):
+    a, w, a_s, w_s = operands(m, k, n, seed=m + k, device=cuda_device)
+    plain = {"copy": ref.dcim_mac_copy_scaled_ref,
+             "compute": ref.dcim_mac_compute_scaled_ref}[mode]
+    before = {md: dict(c) for md, c in mac_kernel.SKELETON_LAUNCHES.items()}
+    got = mac_kernel.dcim_mac_cuda(a, w, a_s, w_s, out_dtype, depth=depth,
+                                   _mode=mode)
+    before[mode][str(out_dtype).removeprefix("torch.")] += 1
+    assert mac_kernel.SKELETON_LAUNCHES == before
+    assert got.dtype == out_dtype
+    assert torch.equal(got, plain(a, w, a_s, w_s, out_dtype))
 
 
 def test_dcim_mac_skeleton_needs_the_tma_kernel(cuda_device):
@@ -588,3 +609,70 @@ def test_csa_tree_equals_gate_level_simulation(cuda_device, h, fam_i):
     got = csa_tree_sum(torch.as_tensor(ops, dtype=torch.int32,
                                        device=cuda_device))
     np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+# -- the model zoo on the card -------------------------------------------------
+MODEL_ARCHS = ["qwen3-4b", "llama3.2-3b", "phi3-mini-3.8b",
+               "mistral-large-123b", "internvl2-1b", "whisper-tiny"]
+
+
+def _smoke_models(arch, device):
+    """The smoke config's model drawn on the CPU (seed 0) and copied to the
+    card."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import Transformer
+
+    cfg = smoke_config(arch)
+    api = get_model(cfg)
+    cpu = api.init_params(torch.Generator().manual_seed(0), device="cpu")
+    card = Transformer(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 12)))
+    frontend = None
+    if cfg.frontend is not None:
+        frontend = torch.as_tensor(rng.normal(size=(
+            2, cfg.frontend.n_tokens, cfg.frontend.d_frontend)),
+            dtype=torch.float32)
+    return cfg, api, cpu, card, tokens, frontend
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_smoke_model_on_the_card_equals_the_cpu(cuda_device, arch):
+    """float32, TF32 off: prefill logits within 2% of their largest
+    magnitude (a float32 ulp may flip one fake-quant rounding, one int8
+    step: 0.8% of a row's range) and the greedy tokens equal."""
+    from repro_torch.serve import greedy_generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, api, cpu, card, tokens, frontend = _smoke_models(arch, cuda_device)
+    dev = None if frontend is None else frontend.to(cuda_device)
+    got, state = api.prefill(card, tokens.to(cuda_device), 20, frontend=dev)
+    want, _ = api.prefill(cpu, tokens, 20, frontend=frontend)
+    assert state["k"].device.type == "cuda" and state["pos"].item() == 12
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=0.02 * want.abs().max().item())
+    gen = greedy_generate(api, card, tokens.to(cuda_device), 6, frontend=dev)
+    assert torch.equal(gen.cpu(),
+                       greedy_generate(api, cpu, tokens, 6, frontend=frontend))
+
+
+def test_decode_writes_the_card_cache_in_place(cuda_device):
+    cfg, api, _, card, tokens, _ = _smoke_models("qwen3-4b", cuda_device)
+    _, state = api.prefill(card, tokens.to(cuda_device), 16)
+    k = state["k"]
+    _, state = api.decode_step(card, state, tokens[:, :1].to(cuda_device))
+    assert state["k"] is k and state["pos"].item() == 13
+    assert torch.count_nonzero(k[:, :, 12]) > 0
+    assert torch.count_nonzero(k[:, :, 13:]) == 0
+
+
+def test_launcher_serves_on_the_card(cuda_device, capsys):
+    from repro_torch.launch import serve as launch
+
+    launch.main(["--arch", "qwen3-4b", "--smoke", "--batch", "2",
+                 "--prompt-len", "8", "--decode-steps", "4"])
+    out = capsys.readouterr().out
+    assert f"on {torch.cuda.get_device_name(0)}" in out
+    assert "device=cuda:0" in out

@@ -7,6 +7,10 @@ the JAX package's on the CPU.
   bh 128, ``ssm_scan`` copy at bt 32), and against a direct numpy
   computation otherwise (``dcim_mac`` copy and compute, ``ssm_scan``
   compute, whose JAX skeletons read buffers that nothing filled): **exact**;
+* the float32 / bfloat16 ``dcim_mac`` skeletons' plain versions (the int32
+  token through the dequant epilogue): the epilogue against the JAX
+  skeletons in interpret mode, each f32/bf16 JAX skeleton being its int32
+  one's token through it, and the plain versions against numpy: **exact**;
 * ``_traffic``, ``KernelProfile`` (``as_dict``, ``bound``,
   ``roofline_fraction``) and ``fraction_from_profiles`` against the JAX
   ones on the same fields: **equal**;
@@ -33,6 +37,8 @@ import torch
 from repro.kernels import profile as jax_profile
 from repro.kernels import tiles as jax_tiles
 from repro.kernels.csa_tree.kernel import csa_tree_tiled_pallas
+from repro.kernels.dcim_mac.kernel import (dcim_matmul_int_pipelined_pallas,
+                                           dcim_matmul_pipelined_pallas)
 from repro.kernels.ssm_scan.kernel import ssm_scan_pipelined_pallas
 
 from repro_torch.kernels import profile
@@ -211,6 +217,64 @@ class TestDcimMacTokens:
                                   one.astype(np.int32).astype(np.int64))
 
 
+def _scales(m, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.01, 2.0, m).astype(np.float32),
+            rng.uniform(0.01, 2.0, n).astype(np.float32))
+
+
+SCALED = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _as_bits(x: np.ndarray) -> np.ndarray:
+    return x.view(np.int16 if x.dtype.itemsize == 2 else np.int32)
+
+
+class TestDcimMacScaledTokens:
+    """K2: the float32 / bfloat16 skeletons of
+    ``dcim_matmul_pipelined_pallas`` (its ``_mode``)."""
+
+    @pytest.mark.parametrize("out_dtype", sorted(SCALED))
+    @pytest.mark.parametrize("mode", ["copy", "compute"])
+    @pytest.mark.parametrize("m,k,n", [(130, 512, 208), (64, 256, 128)])
+    def test_jax_skeleton_is_the_int32_token_through_the_epilogue(
+            self, m, k, n, mode, out_dtype):
+        a, w = _mac_inputs(m, k, n, seed=m + n)
+        asc, wsc = _scales(m, n, seed=k)
+        jdt, tdt = SCALED[out_dtype]
+        token = dcim_matmul_int_pipelined_pallas(
+            jnp.asarray(a), jnp.asarray(w), interpret=True, _mode=mode)
+        want = dcim_matmul_pipelined_pallas(
+            jnp.asarray(a), jnp.asarray(w), jnp.asarray(asc),
+            jnp.asarray(wsc), out_dtype=jdt, interpret=True, _mode=mode)
+        got = mac_ref.dequant_epilogue(torch.as_tensor(np.asarray(token)),
+                                       torch.as_tensor(asc),
+                                       torch.as_tensor(wsc), tdt)
+        assert got.dtype == tdt
+        np.testing.assert_array_equal(
+            got.view(torch.int16 if tdt == torch.bfloat16 else torch.int32)
+            .numpy(), _as_bits(np.asarray(want)))
+
+    @pytest.mark.parametrize("out_dtype", sorted(SCALED))
+    @pytest.mark.parametrize("mode", ["copy", "compute"])
+    @pytest.mark.parametrize("m,k,n", MAC_SHAPES)
+    def test_plain_version_equals_numpy(self, m, k, n, mode, out_dtype):
+        a, w = _mac_inputs(m, k, n, seed=m + k + n)
+        asc, wsc = _scales(m, n, seed=m)
+        _, tdt = SCALED[out_dtype]
+        args = (torch.as_tensor(a), torch.as_tensor(w))
+        token = {"copy": mac_ref.dcim_mac_copy_ref,
+                 "compute": mac_ref.dcim_mac_compute_ref}[mode](*args)
+        plain = {"copy": mac_ref.dcim_mac_copy_scaled_ref,
+                 "compute": mac_ref.dcim_mac_compute_scaled_ref}[mode]
+        got = plain(*args, torch.as_tensor(asc), torch.as_tensor(wsc), tdt)
+        want = token.numpy().astype(np.float32) * (asc[:, None]
+                                                   * wsc[None, :])
+        assert got.dtype == tdt
+        assert torch.equal(got, torch.as_tensor(want).to(tdt))
+
+
 class TestBindings:
     """The bindings' ``_mode`` checks run before any device check, and the
     skeletons build as a library variant of their own."""
@@ -226,6 +290,19 @@ class TestBindings:
         x = torch.zeros((8, 32))
         with pytest.raises(ValueError, match="_mode"):
             ssm_kernel.ssm_scan_cuda(x, x, x[0], _mode="dma")
+
+    def test_unknown_mode_of_the_scaled_kernel_raises(self):
+        a = torch.zeros((64, 128), dtype=torch.int8)
+        s = torch.ones(64)
+        with pytest.raises(ValueError, match="_mode"):
+            mac_kernel.dcim_mac_cuda(a, a.T.contiguous(), s, s,
+                                     torch.float32, _mode="dma")
+
+    def test_skeleton_launches_count_by_mode_and_dtype(self):
+        assert {mode: set(c) for mode, c in
+                mac_kernel.SKELETON_LAUNCHES.items()} == {
+            mode: {"int32", "float32", "bfloat16"}
+            for mode in ("copy", "compute")}
 
     def test_skeleton_library_is_its_own_build(self):
         for name in ("dcim_mac", "ssm_scan"):
