@@ -97,29 +97,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
                check, and ``csa_tree_sum`` on the card equals
                ``gatesim.simulate`` of its netlist at its 64 rows and at
                256; ``examples/torch_quickstart.py`` prints ``PASS``;
- 10. model     the port's model zoo serving qwen3-4b at its full width (36
-               layers, 4.41e9 parameters, bf16) drawn on the card from a
-               generator seeded 0: prefill of 4 x 64 tokens and 32 greedy
-               decode steps into a 96-token cache (times, tokens/s, peak
-               memory and the decode step's bound printed; logits finite,
-               of the right shapes); the cache check, prefill of 63 tokens
-               plus one decode step against the prefill of 64 at the last
-               position, in the config (within BF16_TOL_FRAC) and at full
-               width in float32 without fake-quant (within F32_TOL_FRAC),
-               the argmax kept wherever the top two are not tied within
-               the difference; the config at 2 layers in float32 on the
-               card against the CPU: without fake-quant the prefill logits
-               within F32_TOL_FRAC and 8 greedy tokens equal, with it every
-               weight's fake-quant equal and the first differing
-               activation quantizer call off by single code steps; and
-               ``python -m repro_torch.launch.serve --arch qwen3-4b
-               --dcim-select`` at the full config as a subprocess, cold
-               then warm on one frontier store, with the profile phase's
-               artifact: the service phase's pick and ``select_macros``'
-               tokens/s bound, one fused pass cold and none warm.  It
-               launches no hand-written kernel: the model's products are
-               ``torch.matmul`` of fake-quantised operands, as the JAX
-               model's are ``jnp.matmul``;
+ 10. model     the port's model zoo serving qwen3-4b (36 layers, 4.41e9
+               parameters), then, each one's weights freed before the
+               next, granite-moe-3b-a800m, rwkv6-7b and zamba2-1.2b, each
+               at its full config (bf16) through one routine: the weights
+               drawn on the card from a generator seeded 0 (layer and
+               parameter counts checked and printed); prefill of 4 x 64
+               tokens and greedy decode steps (32 for qwen3-4b, 8 for the
+               rest; init s, prefill ms, decode ms per step, tokens/s, peak
+               memory and the step's bound printed; logits finite over the
+               vocabulary, the padding masked, of the right shapes); for
+               rwkv6 and zamba2 whether a 4 x 256-token prefill in the
+               config is finite (printed, not gated: the reference's
+               chunked scan can leave float32 there); for all but MoE, one
+               decode step after a 64-token prefill against the 65-token
+               prefill at full width in float32 without fake-quant (within
+               F32_TOL_FRAC, the argmax kept wherever the top two are not
+               tied within twice the difference); the config at 2 layers
+               in float32 without fake-quant on the card against the CPU
+               (within F32_TOL_FRAC and 8 greedy tokens equal, unless an
+               MoE expert choice flipped, which must then be a near-tie of
+               the CPU's gates within EXPERT_TIE and is printed); and
+               ``python -m repro_torch.launch.serve --arch <model>
+               --dcim-select`` at the full config as a subprocess on one
+               frontier store, its selection and tokens/s bound equal to
+               ``select_macros``' and its times naming the card.  qwen3-4b
+               adds: the cache check in the config (prefill of 63 tokens
+               plus one decode step against the prefill of 64, within
+               BF16_TOL_FRAC); the card against the CPU with fake-quant on
+               (every weight's fake-quant equal, the first differing
+               activation quantizer call off by single code steps); and a
+               cold launch with the profile phase's artifact before the
+               warm one (one fused pass cold, none warm, the service
+               phase's pick).  It launches no hand-written kernel: the
+               models' products are ``torch.matmul`` and ``torch.einsum``
+               of fake-quantised operands, as the JAX models' are
+               ``jnp.matmul`` and ``jnp.einsum``;
  11. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
@@ -1641,10 +1654,18 @@ def phase_service(results: dict, serving: dict) -> str:
 # 10. model
 # ---------------------------------------------------------------------------
 
-# The serving cell: qwen3-4b at its full width, 4 prompts of 64 tokens,
-# 32 greedy decode steps into a 96-token cache.
-MODEL_BATCH, MODEL_PROMPT, MODEL_DECODE = 4, 64, 32
-MODEL_CACHE = MODEL_PROMPT + MODEL_DECODE
+# The serving cells, each model at its full config: 4 prompts of 64
+# tokens, then greedy decode steps (qwen3-4b 32, into a 96-token cache; the
+# rest of the zoo 8, into 72); the decode-after-prefill checks prefill 65
+# tokens.  The parameter counts are the reference's
+# (tests/test_torch_models.py holds them equal).
+MODEL_ARCHS = ("qwen3-4b", "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-1.2b")
+MODEL_BATCH, MODEL_PROMPT = 4, 64
+MODEL_DECODE = {"qwen3-4b": 32, "granite-moe-3b-a800m": 8, "rwkv6-7b": 8,
+                "zamba2-1.2b": 8}
+MODEL_PARAMS = {"qwen3-4b": 4_411_424_256,
+                "granite-moe-3b-a800m": 3_298_985_472,
+                "rwkv6-7b": 7_534_546_944, "zamba2-1.2b": 1_170_313_344}
 # Tolerances of the model phase, as shares of the reference logits' largest
 # magnitude.  A bfloat16 path rounds to 8 bits of mantissa after every op
 # and through 36 layers of fake-quant; a float32 path without fake-quant
@@ -1654,6 +1675,9 @@ MODEL_CACHE = MODEL_PROMPT + MODEL_DECODE
 # the others are ties within the two paths' rounding, printed.
 BF16_TOL_FRAC = 0.1
 F32_TOL_FRAC = 1e-4
+# A reference MoE gate pair within EXPERT_TIE is a near-tie: card and CPU
+# may route it either way.
+EXPERT_TIE = 1e-6
 
 
 def _launch_serve(args: list[str]) -> list[str]:
@@ -1723,137 +1747,218 @@ def _first_flip(got: list, want: list):
     return None
 
 
-def phase_model(pick: str, artifact: Path) -> None:
-    """The port's model zoo on the card (module doc, phase 10): qwen3-4b
-    at full width through prefill and greedy decode, the decode cache held
-    against a longer prefill, the card against the CPU at 2 full-width
-    layers in float32, and the serving launcher, cold then warm."""
-    import shutil
+@contextlib.contextmanager
+def _recording_experts(choices: list):
+    """A context in which every MoE dispatch appends (gates, the experts
+    chosen), on the host, to ``choices``."""
+    import repro_torch.models.moe as moe
 
+    orig = moe._top_k
+
+    def rec(gates, k):
+        v, i = orig(gates, k)
+        choices.append((gates.cpu(), i.cpu()))
+        return v, i
+
+    moe._top_k = rec
+    try:
+        yield
+    finally:
+        moe._top_k = orig
+
+
+def _first_expert_flip(got: list, want: list):
+    """(dispatch, tokens routed otherwise, tokens) of the first MoE dispatch
+    whose expert choices differ, or None; at every differing choice slot
+    ``want``'s gates of the two experts must tie within EXPERT_TIE."""
+    check(len(got) == len(want), f"model: {len(got)} MoE dispatches "
+          f"against {len(want)}")
+    for i, ((_, a), (gates, b)) in enumerate(zip(got, want)):
+        rows = (a != b).any(-1).nonzero().tolist()
+        for g, s in rows:
+            gap = (gates[g, s][a[g, s]] - gates[g, s][b[g, s]]).abs().max()
+            check(gap.item() <= EXPERT_TIE, f"model: MoE dispatch {i}, "
+                  f"token {(g, s)}: experts {a[g, s].tolist()} against "
+                  f"{b[g, s].tolist()}, gates apart by {gap.item():.3g}")
+        if rows:
+            return i, len(rows), a.shape[0] * a.shape[1]
+    return None
+
+
+def _logits_ok(logits, cfg) -> bool:
+    """Finite over the vocabulary, the padding columns masked (float32's
+    ``min`` cast to the logits' dtype: ``-inf`` in bfloat16)."""
+    import torch
+
+    pad = logits[..., cfg.vocab:].float()
+    return bool(torch.isfinite(logits[..., :cfg.vocab]).all()
+                and (pad <= torch.finfo(torch.float32).min).all())
+
+
+def _serve_model(arch: str, card: str, work: Path, artifact: Path,
+                 pick: str | None = None) -> None:
+    """One model of MODEL_ARCHS on the card (module doc, phase 10): at full
+    width through prefill and greedy decode, decode after a prefill held
+    against the longer prefill at full width in float32 (not for MoE), the
+    card against the CPU at 2 full-width layers in float32, and the
+    launcher on the frontier store ``work``.  qwen3-4b (``pick``: the
+    service phase's macro) adds the cache check in its bf16 config, the
+    card against the CPU with fake-quant on, and a cold launch with the
+    profile phase's ``artifact`` before the warm one."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import gemm_inventory
     from repro_torch.kernels.profile import fraction_from_profile_artifact
-    from repro_torch.models import get_model
-    from repro_torch.models.transformer import Transformer
+    from repro_torch.models import get_model, model_class
     from repro_torch.quant import fake_quant
     from repro_torch.serve import (greedy_generate, make_decode_step,
                                    make_prefill, select_macros)
     from repro_torch.serve.step import greedy_argmax
     from repro_torch.service import FrontierCache, SynthesisService
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    cfg = get_config("qwen3-4b")
+    t_arch = time.perf_counter()
+    main = pick is not None
+    n_decode = MODEL_DECODE[arch]
+    cfg = get_config(arch)
     api = get_model(cfg)
+    rng = np.random.default_rng(SEED)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                           (MODEL_BATCH, MODEL_PROMPT + 1)),
+                              device="cuda")
 
-    # -- 1. full width: init, prefill, 32 greedy decode steps ---------------
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    # -- 1. full width: init, prefill 4 x 64, greedy decode -----------------
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()       # earlier phases' results
     t0 = time.perf_counter()
-    model = api.init_params(torch.Generator(device="cuda").manual_seed(SEED),
-                            device="cuda")
+    model = api.init_params(seeded(), device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    check(len(model.blocks) == 36 and n_params > 4.41e9,
-          f"model: {len(model.blocks)} layers, {n_params} parameters")
-    rng = np.random.default_rng(SEED)
-    prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
-                                           (MODEL_BATCH, MODEL_PROMPT)),
-                              device="cuda")
-    prefill = make_prefill(api, MODEL_CACHE)
+    layers = len(model.mamba if cfg.family == "hybrid" else model.blocks)
+    check(layers == cfg.n_layers and n_params == MODEL_PARAMS[arch],
+          f"model: {arch}: {layers} layers, {n_params} parameters")
+    log(f"model: {arch} full width ({layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.param_dtype}"
+        + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} x "
+           f"{cfg.moe.d_expert}" if cfg.moe else "")
+        + (f", ssm state {cfg.ssm.state} x head {cfg.ssm.head_dim}, chunk "
+           f"{cfg.ssm.chunk}" if cfg.ssm else "")
+        + (f", shared attention every {cfg.attn_every}" if cfg.attn_every
+           else "")
+        + f"): {n_params} parameters, {weight_bytes} bytes, drawn on the "
+        f"card in {t_init:.3f} s")
+    prefill = make_prefill(api, MODEL_PROMPT + n_decode)
     decode = make_decode_step(api)
     # one untimed pass first: cuBLAS handles and first launches
-    _, warm = prefill(model, prompts)
+    _, warm = prefill(model, prompts[:, :MODEL_PROMPT])
     decode(model, warm, prompts[:, :1])
     del warm
     torch.cuda.synchronize()
-
     t0 = time.perf_counter()
-    logits, state = prefill(model, prompts)
+    logits, state = prefill(model, prompts[:, :MODEL_PROMPT])
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     check(logits.shape == (MODEL_BATCH, MODEL_PROMPT, cfg.vocab_padded)
-          and bool(torch.isfinite(logits).all()),
-          f"model: prefill logits {tuple(logits.shape)}, finite "
-          f"{bool(torch.isfinite(logits).all())}")
+          and _logits_ok(logits, cfg),
+          f"model: {arch}: prefill logits {tuple(logits.shape)}, finite "
+          f"over the vocabulary and padding masked "
+          f"{_logits_ok(logits, cfg)}")
     last = logits[:, -1].float()
     tok = greedy_argmax(logits)
-    out = [tok]
-    steps = []
+    out, steps = [tok], []
     t0 = time.perf_counter()
-    for _ in range(MODEL_DECODE):
+    for _ in range(n_decode):
         logits, state = decode(model, state, tok)
         tok = greedy_argmax(logits)
         out.append(tok)
         steps.append(logits)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
-    check(int(state["pos"]) == MODEL_CACHE
+    check(int(state["pos"]) == MODEL_PROMPT + n_decode
           and all(x.shape == (MODEL_BATCH, 1, cfg.vocab_padded)
                   for x in steps)
-          and bool(torch.isfinite(torch.cat(steps, 1)).all()),
-          "model: decode logits of the wrong shape or not finite")
-    tokens = torch.cat(out, 1).cpu().numpy()
+          and _logits_ok(torch.cat(steps, 1), cfg),
+          f"model: {arch}: decode logits of the wrong shape or not finite")
     peak = torch.cuda.max_memory_allocated()
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"model: {card}")
-    log(f"model: qwen3-4b full width ({len(model.blocks)} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_padded}, {cfg.param_dtype}): "
-        f"{n_params} "
-        f"parameters, {weight_bytes} bytes, drawn on the card in "
-        f"{t_init:.3f} s")
-    log(f"model: prefill {MODEL_BATCH}x{MODEL_PROMPT} tokens "
-        f"{t_prefill * 1e3:.3f} ms; decode {MODEL_DECODE} steps "
-        f"{t_decode * 1e3:.3f} ms, {t_decode * 1e3 / MODEL_DECODE:.3f} ms "
-        f"per step, {MODEL_BATCH * MODEL_DECODE / t_decode:.1f} tokens/s; "
-        f"bound {bound_ms:.3f} ms per step (every weight byte read once at "
-        f"3.35 TB/s); peak memory {peak} bytes")
-    log(f"model: first 16 tokens of row 0: {tokens[0, :16].tolist()}")
-
-    # -- 2. the cache: prefill S - 1 and one decode step against prefill S --
-    def cache_check(api, model, want, tol, what):
-        _, st = api.prefill(model, prompts[:, :-1], MODEL_PROMPT)
-        got, _ = api.decode_step(model, st, prompts[:, -1:])
-        _same_logits(got[:, -1].float(), want, tol,
-                     f"cache check, {what}: prefill {MODEL_PROMPT - 1} + "
-                     f"1 decode step against prefill {MODEL_PROMPT}")
-
-    cache_check(api, model, last, BF16_TOL_FRAC,
-                "the config (bf16, fake-quant)")
-    del model, logits, steps, out, state
+    log(f"model: {arch} on {card}: init {t_init:.3f} s; prefill "
+        f"{MODEL_BATCH}x{MODEL_PROMPT} tokens {t_prefill * 1e3:.3f} ms; "
+        f"decode {n_decode} steps {t_decode * 1e3:.3f} ms, "
+        f"{t_decode * 1e3 / n_decode:.3f} ms per step, "
+        f"{MODEL_BATCH * n_decode / t_decode:.1f} tokens/s; bound "
+        f"{bound_ms:.3f} ms per step (every weight byte read once at 3.35 "
+        f"TB/s); peak memory {peak} bytes ({held} of them held before "
+        f"init)")
+    log(f"model: {arch}: first 16 tokens of row 0: "
+        f"{torch.cat(out, 1)[0, :16].tolist()}")
+    del logits, state, steps, out
+    if main:
+        # the cache in the config: prefill S - 1 and one decode step
+        # against prefill S (the timed prefill's last logits)
+        _, st = api.prefill(model, prompts[:, :MODEL_PROMPT - 1],
+                            MODEL_PROMPT)
+        got, _ = api.decode_step(model, st,
+                                 prompts[:, MODEL_PROMPT - 1:MODEL_PROMPT])
+        _same_logits(got[:, -1].float(), last, BF16_TOL_FRAC,
+                     f"{arch}: decode after prefill {MODEL_PROMPT - 1} "
+                     f"against prefill {MODEL_PROMPT}, the config "
+                     f"({cfg.param_dtype}, fake-quant)")
+        del got, st
+    if cfg.family in ("ssm", "hybrid"):
+        # a chunk of 256 tokens: the reference's chunked scan may leave
+        # float32 there (ROADMAP.md, "Reference state"); printed, not gated
+        long = torch.as_tensor(rng.integers(0, cfg.vocab, (MODEL_BATCH, 256)),
+                               device="cuda")
+        lg, _ = api.prefill(model, long, 256)
+        bad = (~torch.isfinite(lg[..., :cfg.vocab])).any(-1).any(0)
+        log(f"model: {arch}: prefill of {MODEL_BATCH}x256 tokens in the "
+            f"config: finite {not bool(bad.any())}; {int(bad.sum())} of "
+            f"256 positions with a non-finite logit")
+        del lg, bad
+    del model, last
     torch.cuda.empty_cache()
-    # the same at full width in float32 without fake-quant, where the two
-    # paths differ only by the order of float32 sums
-    api32 = get_model(cfg.replace(param_dtype="float32",
-                                  compute_dtype="float32",
-                                  dcim_enabled=False))
-    exact = api32.init_params(
-        torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-    want, _ = api32.prefill(exact, prompts, MODEL_PROMPT)
-    cache_check(api32, exact, want[:, -1].float(), F32_TOL_FRAC,
-                "float32, fake-quant off")
-    del exact, want
-    torch.cuda.empty_cache()
+
+    # -- 2. decode continues prefill: float32, fake-quant off, full width ---
+    if cfg.family != "moe":
+        # MoE is left out: a decode step's tokens form another group, with
+        # another capacity, than the prefill's (ROADMAP.md, "Reference
+        # state")
+        api32 = get_model(cfg.replace(param_dtype="float32",
+                                      compute_dtype="float32",
+                                      dcim_enabled=False))
+        exact = api32.init_params(seeded(), device="cuda")
+        want, _ = api32.prefill(exact, prompts, MODEL_PROMPT + 1)
+        _, st = api32.prefill(exact, prompts[:, :-1], MODEL_PROMPT + 1)
+        got, _ = api32.decode_step(exact, st, prompts[:, -1:])
+        v = cfg.vocab
+        _same_logits(got[:, -1, :v].float(), want[:, -1, :v].float(),
+                     F32_TOL_FRAC,
+                     f"{arch}: decode after prefill {MODEL_PROMPT} against "
+                     f"prefill {MODEL_PROMPT + 1}, full width in float32, "
+                     f"fake-quant off")
+        del exact, want, got, st
+        torch.cuda.empty_cache()
 
     # -- 3. card against CPU at 2 full-width layers, float32 ----------------
+    t0 = time.perf_counter()
     cfg2 = cfg.replace(n_layers=2, param_dtype="float32",
                        compute_dtype="float32")
     small = prompts[:2, :32]
-    t0 = time.perf_counter()
-    for dcim in (False, True):
+    for dcim in ((False, True) if main else (False,)):
         api2 = get_model(cfg2.replace(dcim_enabled=dcim))
-        gpu = api2.init_params(
-            torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
-        cpu = Transformer(api2.cfg, device="cpu")
+        gpu = api2.init_params(seeded(), device="cuda")
+        cpu = model_class(api2.cfg)(api2.cfg, device="cpu")
         cpu.load_state_dict(gpu.state_dict())
+        what = (f"{arch}: card against CPU, 2 full-width layers in float32, "
+                f"fake-quant {'on' if dcim else 'off'}, prompts 2x32")
         if dcim:
             # the quantizer on the card equals the CPU's on every weight
             linears = [(name, wg, wc) for (name, wg), wc in
@@ -1864,47 +1969,56 @@ def phase_model(pick: str, artifact: Path) -> None:
                                   fake_quant(wc, 8, 0)),
                       f"model: fake_quant of {name} on the card differs "
                       "from the CPU's")
-        codes = [], []
-        with _recording_codes(codes[0]):
-            got, _ = api2.prefill(gpu, small, 40)
-        with _recording_codes(codes[1]):
-            want, _ = api2.prefill(cpu, small.cpu(), 40)
+        codes, choices, runs = ([], []), ([], []), []
+        for i, (m, x) in enumerate(((gpu, small), (cpu, small.cpu()))):
+            with _recording_codes(codes[i]), _recording_experts(choices[i]):
+                lg, _ = api2.prefill(m, x, 40)
+                runs.append((lg[:, -1, :cfg.vocab].cpu(), None if dcim else
+                             greedy_generate(api2, m, x, 8).cpu()))
+        (got, gen_card), (want, gen_cpu) = runs
         flip = _first_flip(*codes)
-        what = (f"card against CPU, 2 full-width layers in float32, "
-                f"fake-quant {'on' if dcim else 'off'}, prompts 2x32")
-        if not dcim:
-            _same_logits(got[:, -1].cpu(), want[:, -1], F32_TOL_FRAC, what)
-            check(flip is None, f"model: {what}: codes differ")
-            gen = [greedy_generate(api2, m, x, 8).cpu() for m, x in
-                   ((gpu, small), (cpu, small.cpu()))]
-            log(f"model: {what}: 8 greedy tokens {gen[0].tolist()} / "
-                f"{gen[1].tolist()}")
-            check(torch.equal(gen[0], gen[1]),
-                  "model: the card's greedy tokens differ from the CPU's")
-        else:
+        expert = _first_expert_flip(*choices)
+        if dcim:
             # one weight code step moves an activation by 1/127 of its
             # row's range, and random weights carry it through; the
             # first differing quantizer call must differ by single steps
-            d = (got.cpu() - want).abs().max().item()
+            d = (got - want).abs().max().item()
             log(f"model: {what}: weight fake-quant equal on all "
                 f"{len(linears)} linears; first activation flip "
                 f"{'none' if flip is None else flip} (call, codes "
                 f"flipped, codes); logits max |diff| {d:.6f} of "
                 f"{want.abs().max().item():.6f}")
-        del gpu, cpu, got, want
+        elif expert is None:
+            check(flip is None, f"model: {what}: codes differ")
+            _same_logits(got, want, F32_TOL_FRAC, what)
+            log(f"model: {what}: 8 greedy tokens {gen_card.tolist()} / "
+                f"{gen_cpu.tolist()}"
+                + (f"; expert choices equal in all {len(choices[0])} "
+                   "dispatches" if cfg.family == "moe" else ""))
+            check(torch.equal(gen_card, gen_cpu),
+                  f"model: {arch}: the card's greedy tokens differ from the "
+                  "CPU's")
+        else:
+            # a near-tie routed otherwise moves whole expert outputs: printed
+            d = (got - want).abs().max().item()
+            log(f"model: {what}: expert choice flip {expert} (dispatch, "
+                f"tokens routed otherwise, tokens), a near-tie within "
+                f"{EXPERT_TIE}; logits max |diff| {d:.6g}; greedy "
+                f"{gen_card.tolist()} / {gen_cpu.tolist()}")
+        del gpu, cpu, got, want, lg, runs
         torch.cuda.empty_cache()
-    log(f"model: card against CPU: {time.perf_counter() - t0:.3f} s")
+    log(f"model: {arch}: card against CPU {time.perf_counter() - t0:.3f} s")
 
-    # -- 4. the launcher at the full config, cold then warm -----------------
-    work = ROOT / "build" / "model"
-    shutil.rmtree(work, ignore_errors=True)
-    args = ["--arch", "qwen3-4b", "--dcim-select", "--dcim-cache",
-            str(work / "cache"), "--dcim-kernel-profile", str(artifact),
-            "--batch", str(MODEL_BATCH), "--prompt-len", str(MODEL_PROMPT),
-            "--decode-steps", str(MODEL_DECODE)]
-    fraction = fraction_from_profile_artifact(artifact)
+    # -- 4. the launcher at the full config, on the frontier store ----------
+    args = ["--arch", arch, "--decode-steps", str(n_decode), "--dcim-select",
+            "--dcim-cache", str(work)]
+    fraction = 1.0
+    if main:
+        args += ["--dcim-kernel-profile", str(artifact), "--batch",
+                 str(MODEL_BATCH), "--prompt-len", str(MODEL_PROMPT)]
+        fraction = fraction_from_profile_artifact(artifact)
     sel = None
-    for launch in ("cold", "warm"):
+    for launch in (("cold", "warm") if main else ("warm",)):
         t0 = time.perf_counter()
         lines = _launch_serve(args)
         wall = time.perf_counter() - t0
@@ -1915,31 +2029,50 @@ def phase_model(pick: str, artifact: Path) -> None:
             "cold (hits=0 misses=4 fused_passes=1" in service[0]
             if launch == "cold" else
             "warm (hits=4 misses=0 fused_passes=0" in service[0]),
-            f"model: {launch} launch: {service}")
+            f"model: {arch}: {launch} launch: {service}")
         if sel is None:
             # select_macros as the launcher calls it, from its warm store
             sel = select_macros(
                 {cfg.name: gemm_inventory(cfg)}, kernel_fraction=fraction,
-                service=SynthesisService(
-                    cache=FrontierCache(store_dir=work / "cache")))
+                service=SynthesisService(cache=FrontierCache(store_dir=work)))
         label = sel.label_for(cfg.name)
-        check(f"dcim: selected {label} for {cfg.name} " in "\n".join(lines)
-              and label == pick,
-              f"model: launch selected other than the service phase's "
-              f"{pick} / select_macros' {label}")
+        text = "\n".join(lines)
+        check(f"dcim: selected {label} for {cfg.name} " in text
+              and pick in (None, label),
+              f"model: {arch}: the launch selected other than "
+              f"select_macros' {label} (the service phase's: {pick})")
         check(f"dcim: serving roofline "
-              f"{sel.serving_for(cfg.name).tokens_per_s:.1f} tok/s"
-              in "\n".join(lines),
-              "model: the launch's serving roofline differs from "
+              f"{sel.serving_for(cfg.name).tokens_per_s:.1f} tok/s" in text,
+              f"model: {arch}: the launch's serving roofline differs from "
               "select_macros'")
         check(sum(ln.startswith(("prefill: ", "decode : ")) and
                   ln.endswith(f" on {torch.cuda.get_device_name(0)}")
                   for ln in lines) == 2,
-              "model: the launch's times do not name the card")
-        log(f"model: launch.serve {launch}: {wall:.3f} s; selected {label} "
-            f"(== the service phase's pick), "
-            f"{sel.serving_for(cfg.name).tokens_per_s!r} tok/s at kernel "
-            f"fraction {fraction!r} (== select_macros')")
+              f"model: {arch}: the launch's times do not name the card")
+        log(f"model: {arch}: launch.serve {launch}: {wall:.3f} s; selected "
+            f"{label} (== select_macros'"
+            + (", == the service phase's pick" if main else "")
+            + f"), {sel.serving_for(cfg.name).tokens_per_s!r} tok/s at "
+            f"kernel fraction {fraction!r}")
+    log(f"model: {arch} in all {time.perf_counter() - t_arch:.3f} s")
+
+
+def phase_model(pick: str, artifact: Path) -> None:
+    """The port's model zoo on the card (module doc, phase 10): each of
+    MODEL_ARCHS in turn, qwen3-4b first, through :func:`_serve_model` on
+    one frontier store."""
+    import shutil
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"model: {card}")
+    work = ROOT / "build" / "model"
+    shutil.rmtree(work, ignore_errors=True)
+    for arch in MODEL_ARCHS:
+        _serve_model(arch, card, work / "cache", artifact,
+                     pick if arch == "qwen3-4b" else None)
 
 
 def main() -> int:

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Probe: where the time of one qwen3-4b decode step goes on the card.
+"""Probe: where the time of one decode step goes on the card.
 
-    python3 probes/model_decode.py
+    python3 probes/model_decode.py [--arch qwen3-4b]
 
-Needs one CUDA card.  It builds qwen3-4b at its full width (bf16, drawn
+Needs one CUDA card.  It builds the arch at its full width (bf16, drawn
 from a generator seeded 0, as ``chip_smoke.py``'s model phase does),
 prefills 4 prompts of 64 tokens into a 96-token cache, then, for DCIM
-fake-quant on (the config) and off (every linear a plain bf16 matmul, the
-reference's ``dcim_enabled=False``):
+fake-quant on (the config) and off (every linear and every MoE expert a
+plain bf16 product, the reference's ``dcim_enabled=False``):
 
 * times 16 decode steps with the host clock, the device synchronised at the
   end (ms per step);
@@ -19,6 +19,7 @@ reference's ``dcim_enabled=False``):
 The decode step's bound is every weight byte read once at 3.35 TB/s.
 """
 
+import argparse
 import subprocess
 import sys
 import time
@@ -36,6 +37,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models.layers import DcimLinear  # noqa: E402
+from repro_torch.models.moe import MoeMlp  # noqa: E402
 from repro_torch.serve.step import greedy_argmax  # noqa: E402
 
 BATCH, PROMPT, CACHE = 4, 64, 96
@@ -44,24 +46,28 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("model_decode: no CUDA device is visible", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)
-    cfg = get_config("qwen3-4b")
+    cfg = get_config(args.arch)
     api = get_model(cfg)
     model = api.init_params(torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    print(f"bound: {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms per step "
-          f"({weight_bytes} weight bytes at 3.35 TB/s)", flush=True)
+    print(f"{cfg.name}: bound {weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms "
+          f"per step ({weight_bytes} weight bytes at 3.35 TB/s)", flush=True)
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (BATCH, PROMPT)),
                               device="cuda")
-    linears = [m for m in model.modules() if isinstance(m, DcimLinear)]
+    linears = [m for m in model.modules()
+               if isinstance(m, (DcimLinear, MoeMlp))]
     for enabled in (True, False):
         for m in linears:
             m.enabled = enabled

@@ -1,24 +1,21 @@
-"""Assigned architecture configs the port carries so far: copies of the
-JAX package's, with their smoke variants.
+"""Assigned architecture configs: copies of the JAX package's ten, with
+their smoke variants.
 
 ``get_config(name)`` / ``list_archs()`` / ``smoke_config(name)`` mirror the
-JAX package's ``repro.configs``.  The port carries seven of its ten configs:
-the transformer family the port's model zoo serves — ``qwen3-4b`` (whose
-GEMMs also drive the ``dcim_mac`` and ``csa_tree`` kernels),
-``llama3.2-3b``, ``phi3-mini-3.8b``, ``mistral-large-123b`` (246 GB of
-bfloat16 weights: on one card it runs only as ``--smoke``),
-``internvl2-1b`` (vlm) and ``whisper-tiny`` (audio) — and ``zamba2-1.2b``,
-whose Mamba2 state sizes the ``ssm_scan`` kernel (its model comes with
-ROADMAP.md queue 1, item 7, as do rwkv6-7b and the two granite MoE
-configs).
+JAX package's ``repro.configs``; every family is served by the port's model
+zoo (``repro_torch.models.get_model``).  ``qwen3-4b``'s GEMMs also drive
+the ``dcim_mac`` and ``csa_tree`` kernels and ``zamba2-1.2b``'s Mamba2
+state sizes the ``ssm_scan`` kernel; ``mistral-large-123b`` (246 GB of
+bfloat16 weights) runs on one card only as ``--smoke``.
 """
 
 from __future__ import annotations
 
 from .base import (ArchConfig, FrontendCfg, MoECfg, SSMCfg, SHAPES, ShapeCfg,
                    SUBQUADRATIC_FAMILIES, applicable_shapes)
-from . import (internvl2_1b, llama32_3b, mistral_large_123b, phi3_mini_38b,
-               qwen3_4b, whisper_tiny, zamba2_12b)
+from . import (granite_moe_1b, granite_moe_3b, internvl2_1b, llama32_3b,
+               mistral_large_123b, phi3_mini_38b, qwen3_4b, rwkv6_7b,
+               whisper_tiny, zamba2_12b)
 
 _MODULES = {
     "llama3.2-3b": llama32_3b,
@@ -27,6 +24,9 @@ _MODULES = {
     "phi3-mini-3.8b": phi3_mini_38b,
     "internvl2-1b": internvl2_1b,
     "zamba2-1.2b": zamba2_12b,
+    "rwkv6-7b": rwkv6_7b,
+    "granite-moe-1b-a400m": granite_moe_1b,
+    "granite-moe-3b-a800m": granite_moe_3b,
     "whisper-tiny": whisper_tiny,
 }
 

@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 from .core.macro import MacroSpec
-from .models.layers import dt
 from .core.tech import TechModel
 from .device import resolve_device
 
@@ -124,13 +123,16 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device=None):
 
     The reference stacks each block's parameters on a leading ``layer``
     axis (``stack_init``); they are unstacked into ``blocks.<i>`` /
-    ``enc_blocks.<i>``.  A leaf that is a linear's weight (``attn.wq``)
-    lands in that module's ``w``.  Every parameter must be given once, with
-    the model's shape and dtype."""
-    from .models.transformer import Transformer
+    ``enc_blocks.<i>`` / ``mamba.<i>`` (zamba2's one ``shared_attn`` block
+    is not stacked).  A leaf that is a linear's weight (``attn.wq``) lands
+    in that module's ``w``; any other leaf (an MoE router or expert tensor,
+    RWKV6's ``mu_*``, ``w0``, ``u``, ``wA`` / ``wB``, Mamba2's ``conv_w``,
+    ``A_log``, ``dt_bias``, ``D``) in the parameter of its name.  Every
+    parameter must be given once, with the model's shape and dtype."""
+    from .models import model_class
 
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = model_class(cfg)(cfg, device=dev)
     params = dict(model.named_parameters())
     filled: set[str] = set()
 
@@ -153,7 +155,7 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device=None):
     for name, value in _flatten(tree):
         value = np.asarray(value)
         top, _, rest = name.partition(".")
-        if top in ("blocks", "enc_blocks"):
+        if top in ("blocks", "enc_blocks", "mamba"):
             for i in range(value.shape[0]):
                 put(f"{top}.{i}.{rest}", value[i])
         else:
@@ -181,10 +183,17 @@ def decode_state_from_numpy(cfg, tree: Mapping[str, np.ndarray],
                             device=None) -> dict[str, torch.Tensor]:
     """A decode state of ``cfg`` (the reference's plain state tree, or
     :func:`decode_state_to_numpy`'s) as the port's tensors on ``device``
-    (``None``: the CUDA card): caches and ``enc_out`` in the compute dtype,
-    ``pos`` int32."""
+    (``None``: the CUDA card), each in the dtype of the family's layout
+    (``init_decode_state``): KV caches, token shifts, conv caches and
+    ``enc_out`` in the compute dtype, RWKV6's ``wkv`` and Mamba2's ``ssd``
+    states in float32, ``pos`` int32."""
+    from .models import get_model
+
     dev = resolve_device(device)
-    cd = dt(cfg.compute_dtype)
-    return {key: _tensor_from_numpy(np.asarray(value),
-                                    torch.int32 if key == "pos" else cd, dev)
+    layout = get_model(cfg).init_decode_state(1, 1, device="meta")
+    unknown = set(tree) - set(layout)
+    if unknown:
+        raise ValueError(f"{cfg.name}: no decode state {sorted(unknown)}")
+    return {key: _tensor_from_numpy(np.asarray(value), layout[key].dtype,
+                                    dev)
             for key, value in tree.items()}

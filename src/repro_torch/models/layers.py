@@ -416,3 +416,46 @@ class Mlp(nn.Module):
         g = self.w_gate(x)
         u = self.w_up(x)
         return self.w_down(g * torch.sigmoid(g) * u)
+
+
+# ---------------------------------------------------------------------------
+# Model base
+# ---------------------------------------------------------------------------
+
+
+class ZooModel(nn.Module):
+    """What every model of the zoo shares: its config, device, compute
+    dtype, the parameter draw and the logits (the tied embedding, or an
+    ``unembed`` :class:`Projection`).  A subclass sets ``cfg``, ``embed``,
+    ``ln_f`` and ``unembed`` (``None`` when tied)."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f.g.device
+
+    @property
+    def _cd(self) -> torch.dtype:
+        return dt(self.cfg.compute_dtype)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "ZooModel":
+        """Draw every parameter from ``generator`` (on the model's device),
+        one tensor at a time in module order, each module's
+        ``reset_parameters`` by the reference's law."""
+        for m in self.modules():
+            if hasattr(m, "reset_parameters"):
+                m.reset_parameters(generator)
+        return self
+
+    def _no_aux(self) -> torch.Tensor:
+        """The load-balance loss ``forward_train`` returns beside the
+        logits for a model without routed experts: 0."""
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self._cd
+        if self.unembed is None:
+            out = self.embed.unembed(x, cd)
+        else:
+            out = self.unembed(x, cd)
+        return mask_padded_vocab(out, self.cfg.vocab)

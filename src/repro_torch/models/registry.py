@@ -1,17 +1,17 @@
 """Uniform model API over the zoo (the port of the JAX package's
 ``repro/models/registry.py``).
 
-``get_model(cfg)`` returns a :class:`ModelApi` with the reference's fields.
-Where the reference's functions take a plain parameter tree, the port's take
-the model module (:class:`repro_torch.models.transformer.Transformer`) that
-``init_params`` returns; ``init_params`` and ``init_decode_state`` take the
-device explicitly (``None``: the CUDA card).
+``get_model(cfg)`` returns a :class:`ModelApi` with the reference's fields
+for every family: ``dense``, ``vlm`` and ``audio``
+(:mod:`~repro_torch.models.transformer`), ``moe``
+(:mod:`~repro_torch.models.moe`), ``ssm`` (:mod:`~repro_torch.models.rwkv6`)
+and ``hybrid`` (:mod:`~repro_torch.models.zamba2`).  Where the reference's
+functions take a plain parameter tree, the port's take the model module
+that ``init_params`` returns; ``init_params`` and ``init_decode_state``
+take the device explicitly (``None``: the CUDA card).
 
-forward_train returns (logits, aux_loss) uniformly (aux = 0 for non-MoE).
-
-The port carries the transformer family (``dense``, ``vlm``, ``audio``).
-The ``moe``, ``ssm`` and ``hybrid`` families raise ``NotImplementedError``:
-they come with ROADMAP.md queue 1, item 7.
+Every model's ``forward_train`` returns (logits, aux_loss) (aux = 0 for
+non-MoE).
 """
 
 from __future__ import annotations
@@ -22,7 +22,10 @@ from typing import Callable
 import torch
 
 from ..configs.base import ArchConfig
+from . import moe as moe_mod
+from . import rwkv6 as rwkv_mod
 from . import transformer as tfm_mod
+from . import zamba2 as zamba_mod
 
 
 @dataclass(frozen=True)
@@ -35,27 +38,49 @@ class ModelApi:
     init_decode_state: Callable    # (batch, cache_len, device=None) -> state
 
 
+def _family(cfg: ArchConfig):
+    """(model class, its module's ``init_decode_state``) of ``cfg``'s
+    family."""
+    if cfg.family in ("dense", "vlm", "audio"):
+        return tfm_mod.Transformer, tfm_mod.init_decode_state
+    if cfg.family == "moe":
+        return moe_mod.MoeTransformer, tfm_mod.init_decode_state
+    if cfg.family == "ssm":
+        return rwkv_mod.RWKV6, rwkv_mod.init_decode_state
+    if cfg.family == "hybrid":
+        return zamba_mod.Zamba2, zamba_mod.init_decode_state
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+def model_class(cfg: ArchConfig) -> type:
+    """The model class of ``cfg``'s family: ``model_class(cfg)(cfg,
+    device=...)`` builds it with uninitialised parameters."""
+    return _family(cfg)[0]
+
+
+def _init_params(cls, cfg, generator: torch.Generator | None, device):
+    """A ``cls`` for ``cfg`` on ``device`` (``None``: the CUDA card), its
+    parameters drawn from ``generator`` (default: a generator on that
+    device seeded 0)."""
+    model = cls(cfg, device=device)
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+    return model.init_params(generator)
+
+
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported yet: it "
-            "comes with ROADMAP.md queue 1, item 7 (moe.py, ssm.py + "
-            "rwkv6.py, zamba2.py)")
-    if cfg.family not in ("dense", "vlm", "audio"):
-        raise ValueError(f"unknown family {cfg.family}")
+    cls, init_state = _family(cfg)
     return ModelApi(
         cfg=cfg,
         init_params=lambda generator=None, device=None:
-            tfm_mod.init_params(cfg, generator, device=device),
-        forward_train=lambda model, batch: (
-            model.forward_train(batch),
-            torch.zeros((), dtype=torch.float32, device=model.device)),
+            _init_params(cls, cfg, generator, device),
+        forward_train=lambda model, batch: model.forward_train(batch),
         prefill=lambda model, tokens, cache_len, frontend=None:
             model.prefill(tokens, cache_len, frontend=frontend),
         decode_step=lambda model, state, tokens, frontend=None:
             model.decode_step(state, tokens, frontend=frontend),
         init_decode_state=lambda batch, cache_len, device=None:
-            tfm_mod.init_decode_state(cfg, batch, cache_len, device),
+            init_state(cfg, batch, cache_len, device),
     )
 
 

@@ -46,7 +46,7 @@ class Block(nn.Module):
         return x + self.mlp(self.ln_mlp(x))
 
 
-class Transformer(nn.Module):
+class Transformer(L.ZooModel):
     """The model's parameters and its four functions (``forward_train``,
     ``init_decode_state``, ``prefill``, ``decode_step``).
 
@@ -56,6 +56,8 @@ class Transformer(nn.Module):
     reference's in.
     """
 
+    block_cls = Block
+
     def __init__(self, cfg, device=None):
         super().__init__()
         dev = resolve_device(device)
@@ -63,7 +65,8 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.embed = L.Embedding(cfg.vocab_padded, cfg.d_model, dtype, dev)
         cross = cfg.encoder_layers > 0
-        self.blocks = nn.ModuleList(Block(cfg, dtype, dev, cross=cross)
+        self.blocks = nn.ModuleList(self.block_cls(cfg, dtype, dev,
+                                                   cross=cross)
                                     for _ in range(cfg.n_layers))
         self.ln_f = L.RMSNorm(cfg.d_model, dev)
         self.unembed = (None if cfg.tie_embeddings else
@@ -77,32 +80,7 @@ class Transformer(nn.Module):
                 Block(cfg, dtype, dev) for _ in range(cfg.encoder_layers))
             self.enc_ln_f = L.RMSNorm(cfg.d_model, dev)
 
-    @property
-    def device(self) -> torch.device:
-        return self.ln_f.g.device
-
-    @torch.no_grad()
-    def init_params(self, generator: torch.Generator) -> "Transformer":
-        """Draw every parameter from ``generator`` (on the model's device),
-        one tensor at a time in module order; norms start at one."""
-        for m in self.modules():
-            if hasattr(m, "reset_parameters"):
-                m.reset_parameters(generator)
-        return self
-
     # ------------------------------------------------------------- helpers
-    @property
-    def _cd(self) -> torch.dtype:
-        return L.dt(self.cfg.compute_dtype)
-
-    def _logits(self, x):
-        cd = self._cd
-        if self.unembed is None:
-            out = self.embed.unembed(x, cd)
-        else:
-            out = self.unembed(x, cd)
-        return L.mask_padded_vocab(out, self.cfg.vocab)
-
     def _encode(self, frames):
         """Whisper encoder over (stubbed) frame embeddings (B, F,
         d_frontend)."""
@@ -127,11 +105,12 @@ class Transformer(nn.Module):
         return kx, vx
 
     # ------------------------------------------------------------ training
-    def forward_train(self, batch: dict) -> torch.Tensor:
+    def forward_train(self, batch: dict
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
         """batch: {'tokens': (B,S)} (+ 'frontend': (B,F,d_frontend) for
-        vlm/audio).  Returns logits (B, S, vocab): the vlm prefix is
-        prepended to the sequence and sliced off the logits.  Forward only;
-        training waits for ROADMAP.md queue 1, item 8."""
+        vlm/audio).  Returns (logits (B, S, vocab), aux 0): the vlm prefix
+        is prepended to the sequence and sliced off the logits.  Forward
+        only; training waits for ROADMAP.md queue 1, item 8."""
         cd = self._cd
         x = self.embed(batch["tokens"], cd)
         enc = None
@@ -150,7 +129,7 @@ class Transformer(nn.Module):
         logits = self._logits(self.ln_f(x))
         if prefix:
             logits = logits[:, prefix:]
-        return logits
+        return logits, self._no_aux()
 
     # ------------------------------------------------------------- serving
     def init_decode_state(self, batch: int, cache_len: int) -> dict:
@@ -223,14 +202,3 @@ def init_decode_state(cfg, batch: int, cache_len: int, device=None) -> dict:
             (batch, cfg.frontend.n_tokens, cfg.d_model), dtype=cd,
             device=dev)
     return state
-
-
-def init_params(cfg, generator: torch.Generator | None = None, *,
-                device=None) -> Transformer:
-    """A :class:`Transformer` for ``cfg`` on ``device`` (``None``: the CUDA
-    card), its parameters drawn from ``generator`` (default: a generator
-    on that device seeded 0)."""
-    model = Transformer(cfg, device=device)
-    if generator is None:
-        generator = torch.Generator(device=model.device).manual_seed(0)
-    return model.init_params(generator)

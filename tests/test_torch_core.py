@@ -470,6 +470,11 @@ class TestImportHygiene:
                     "src/repro_torch/models/layers.py",
                     "src/repro_torch/models/transformer.py",
                     "src/repro_torch/models/registry.py",
+                    "src/repro_torch/models/ssm.py",
+                    "src/repro_torch/models/moe.py",
+                    "src/repro_torch/models/rwkv6.py",
+                    "src/repro_torch/models/zamba2.py",
+                    "src/repro_torch/configs/rwkv6_7b.py",
                     "src/repro_torch/serve/step.py",
                     "src/repro_torch/launch/serve.py",
                     "examples/torch_serve_decode.py"):

@@ -411,8 +411,10 @@ def test_skeleton_libraries_build_clean(cuda_device):
     log = library_path("dcim_mac", SKELETONS).with_suffix(".log").read_text()
     report = ptxas_report(log)
     modes = {fn: mac_kernel.tma_kernel_mode(fn) for fn in report}
+    # copy and compute at every ring depth, for each output kind (int32,
+    # float32, bfloat16)
     assert sorted(modes.values()) == sorted(["copy", "compute"]
-                                            * len(MAC_DEPTHS))
+                                            * len(MAC_DEPTHS) * 3)
     assert wgmma_serialized(log) == set()
     for fn, usage in report.items():
         assert usage["spill_stores"] == usage["spill_loads"] == 0, fn
@@ -613,20 +615,21 @@ def test_csa_tree_equals_gate_level_simulation(cuda_device, h, fam_i):
 
 # -- the model zoo on the card -------------------------------------------------
 MODEL_ARCHS = ["qwen3-4b", "llama3.2-3b", "phi3-mini-3.8b",
-               "mistral-large-123b", "internvl2-1b", "whisper-tiny"]
+               "mistral-large-123b", "internvl2-1b", "whisper-tiny",
+               "granite-moe-1b-a400m", "granite-moe-3b-a800m", "rwkv6-7b",
+               "zamba2-1.2b"]
 
 
 def _smoke_models(arch, device):
     """The smoke config's model drawn on the CPU (seed 0) and copied to the
     card."""
     from repro_torch.configs import smoke_config
-    from repro_torch.models import get_model
-    from repro_torch.models.transformer import Transformer
+    from repro_torch.models import get_model, model_class
 
     cfg = smoke_config(arch)
     api = get_model(cfg)
     cpu = api.init_params(torch.Generator().manual_seed(0), device="cpu")
-    card = Transformer(cfg, device=device)
+    card = model_class(cfg)(cfg, device=device)
     card.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 12)))
@@ -650,12 +653,54 @@ def test_smoke_model_on_the_card_equals_the_cpu(cuda_device, arch):
     dev = None if frontend is None else frontend.to(cuda_device)
     got, state = api.prefill(card, tokens.to(cuda_device), 20, frontend=dev)
     want, _ = api.prefill(cpu, tokens, 20, frontend=frontend)
-    assert state["k"].device.type == "cuda" and state["pos"].item() == 12
+    assert all(x.device.type == "cuda" for x in state.values())
+    assert state["pos"].item() == 12
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                atol=0.02 * want.abs().max().item())
     gen = greedy_generate(api, card, tokens.to(cuda_device), 6, frontend=dev)
     assert torch.equal(gen.cpu(),
                        greedy_generate(api, cpu, tokens, 6, frontend=frontend))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "rwkv6-7b",
+                                  "zamba2-1.2b"])
+def test_two_full_width_layers_on_the_card_equal_the_cpu(cuda_device, arch,
+                                                         monkeypatch):
+    """The full config cut to 2 layers, float32 without fake-quant, TF32
+    off, drawn on the card (seed 0) and copied to the CPU: the prefill's
+    last logits within 1e-4 of their largest magnitude (float32 sums in
+    another order), the same argmax wherever a row's top two differ by
+    more than twice the largest difference, and 8 greedy tokens equal.
+    For MoE the expert choices must agree too (a near-tie flip would
+    move whole expert outputs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, model_class
+    from repro_torch.serve import greedy_generate
+    from torch_expert_choices import expert_flip, record_expert_choices
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).replace(n_layers=2, param_dtype="float32",
+                                   compute_dtype="float32",
+                                   dcim_enabled=False)
+    api = get_model(cfg)
+    card = api.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                           device=cuda_device)
+    cpu = model_class(cfg)(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 32)))
+    choices = record_expert_choices(monkeypatch)
+    got, _ = api.prefill(card, tokens.to(cuda_device), 40)
+    want, _ = api.prefill(cpu, tokens, 40)
+    got, want = got[:, -1, :cfg.vocab].cpu(), want[:, -1, :cfg.vocab]
+    d = (got - want).abs().max().item()
+    assert d <= 1e-4 * want.abs().max().item(), d
+    top = want.topk(2, -1).values
+    decisive = (top[:, 0] - top[:, 1]) > 2 * d
+    assert torch.all((got.argmax(-1) == want.argmax(-1)) | ~decisive)
+    assert expert_flip(choices["cuda"], choices["cpu"], 0.0) is None
+    gen = greedy_generate(api, card, tokens.to(cuda_device), 8)
+    assert torch.equal(gen.cpu(), greedy_generate(api, cpu, tokens, 8))
 
 
 def test_decode_writes_the_card_cache_in_place(cuda_device):

@@ -53,16 +53,38 @@ def dcim_lines(lines, *prefixes) -> list[str]:
 
 
 @pytest.fixture(scope="module")
-def launches(tmp_path_factory):
+def stores(tmp_path_factory):
+    return tmp_path_factory.mktemp("launch")
+
+
+@pytest.fixture(scope="module")
+def launches(stores):
     """The JAX launcher once and the port's twice (cold, warm) on
     ``--dcim-select`` with a frontier store each."""
-    tmp = tmp_path_factory.mktemp("launch")
     ref = run([sys.executable, "-c", JAX_LAUNCHER, repr(port_hw.HBM_BW)]
-              + SELECT + ["--dcim-cache", str(tmp / "jax")])
+              + SELECT + ["--dcim-cache", str(stores / "jax")])
     port = [run([sys.executable, "-m", "repro_torch.launch.serve"] + SELECT
-                + ["--device", "cpu", "--dcim-cache", str(tmp / "port")])
+                + ["--device", "cpu", "--dcim-cache", str(stores / "port")])
             for _ in range(2)]
     return ref, port
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-3b-a800m", "rwkv6-7b",
+                                  "zamba2-1.2b"))
+def test_each_family_selects_as_the_reference(arch, launches, stores):
+    # the MoE, ssm and hybrid families' smoke configs from the stores the
+    # qwen3-4b launches filled: warm in both packages, the same selection
+    argv = ["--arch", arch] + SELECT[2:]
+    ref = run([sys.executable, "-c", JAX_LAUNCHER, repr(port_hw.HBM_BW)]
+              + argv + ["--dcim-cache", str(stores / "jax")])
+    port = run([sys.executable, "-m", "repro_torch.launch.serve"] + argv
+               + ["--device", "cpu", "--dcim-cache", str(stores / "port")])
+    want = dcim_lines(ref, "dcim: selected", "dcim: serving roofline")
+    assert len(want) == 2 and f" for {arch}-smoke " in want[0], ref
+    assert dcim_lines(port, "dcim: selected",
+                      "dcim: serving roofline") == want
+    assert "warm (hits=4 misses=0 fused_passes=0" in "\n".join(port)
+    assert f"arch={arch}-smoke" in "\n".join(port)
 
 
 class TestSelectLaunch:
@@ -102,7 +124,9 @@ class TestSelectLaunch:
 
 @pytest.mark.parametrize("arch", ("qwen3-4b", "llama3.2-3b", "phi3-mini-3.8b",
                                   "mistral-large-123b", "internvl2-1b",
-                                  "whisper-tiny"))
+                                  "whisper-tiny", "granite-moe-1b-a400m",
+                                  "granite-moe-3b-a800m", "rwkv6-7b",
+                                  "zamba2-1.2b"))
 def test_launch_each_smoke_config(arch, capsys):
     launch.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch",
                  "2", "--prompt-len", "6", "--decode-steps", "3"])
@@ -125,11 +149,6 @@ def test_trace_and_kernel_profile(tmp_path, capsys):
     events = json.loads(trace.read_text())
     events = events["traceEvents"] if isinstance(events, dict) else events
     assert any(e.get("name") == "engine.pass" for e in events)
-
-
-def test_unported_family_raises(capsys):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        launch.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu"])
 
 
 def test_needs_the_card_unless_asked_for_the_cpu():

@@ -26,6 +26,15 @@ Tolerances, and why:
 * bfloat16 (qwen3-4b smoke, DCIM off) — atol of four bfloat16 ulps at the
   logits' magnitude: the two frameworks round bf16 matmul outputs after
   differently ordered float32 sums, one ulp per rounding.
+* MoE routing: the tests also record every expert choice both packages
+  make.  Where they differ, the reference's gates of the two experts must
+  tie within 1e-6 (a float32 near-tie, not another routing), and the flip
+  tolerance above applies.  ``_top_k_dispatch`` itself: dispatch and
+  combine bit for bit, the load-balance loss within 1e-6 relative (a mean
+  summed in another order: two float32 ulps).
+* ``chunked_gla`` / ``gla_decode_step`` / ``causal_conv1d`` — 1e-5 against
+  the JAX functions, and the reference's own 2e-4 (5e-4 in the property
+  test) against the sequential recurrence.
 """
 
 import dataclasses
@@ -40,10 +49,12 @@ import pytest
 import torch
 
 import repro.configs as jax_configs
+import repro.models.moe as JMOE
 import repro.quant.quantizers as JQ
 from repro.models import cross_entropy_loss as jax_cross_entropy
 from repro.models import get_model as jax_get_model
 from repro.models import layers as JL
+from repro.models import ssm as JSSM
 from repro.parallel.logical import values_of
 
 import repro_torch.configs as port_configs
@@ -51,17 +62,23 @@ import repro_torch.quant.quantizers as TQ
 from repro_torch.convert import (decode_state_from_numpy,
                                  decode_state_to_numpy,
                                  model_params_from_numpy)
-from repro_torch.models import cross_entropy_loss, get_model
+from repro_torch.models import cross_entropy_loss, get_model, model_class
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TMOE
+from repro_torch.models import ssm as TSSM
 from repro_torch.models.transformer import Transformer
 from repro_torch.quant import (QuantSpec, block_fp_align, dequantize,
                                fake_quant, fp8_e4m3_quant, quantize_int)
 from repro_torch.serve import greedy_generate
+from torch_expert_choices import expert_flip, record_expert_choices
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SEED = 0
 ARCHS = ("qwen3-4b", "llama3.2-3b", "phi3-mini-3.8b", "mistral-large-123b",
-         "internvl2-1b", "whisper-tiny")
+         "internvl2-1b", "whisper-tiny", "granite-moe-1b-a400m",
+         "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-1.2b")
+RECURRENT = ("rwkv6-7b", "zamba2-1.2b")
+EXPERT_TIE = 1e-6       # reference gates within this count as a near-tie
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 FLIP_FRAC = 0.02        # flip tolerance: share of the reference's max |value|
 FLIP_CODES = 0.01       # at most this share of the first differing call's codes
@@ -118,9 +135,20 @@ def _bits(x) -> np.ndarray:
 def codes(monkeypatch):
     """Record every ``quantize_int`` code array both packages compute, in
     call order (JAX through an ordered debug callback: its calls run under
-    ``lax.scan`` traces)."""
-    rec = {"jax": [], "port": []}
+    ``lax.scan`` traces), and every MoE dispatch's expert choices with the
+    gates they came from (``experts``)."""
+    port_experts = record_expert_choices(monkeypatch)
+    rec = {"jax": [], "port": [],
+           "experts": {"jax": [], "port": port_experts["cpu"]}}
     jax_q, port_q = JQ.quantize_int, TQ.quantize_int
+    jax_d = JMOE._top_k_dispatch
+
+    def jax_dispatch(gates, k, capacity):
+        jax.debug.callback(
+            lambda g, i: rec["experts"]["jax"].append(
+                (np.asarray(g), np.asarray(i))),
+            gates, jax.lax.top_k(gates, k)[1], ordered=True)
+        return jax_d(gates, k, capacity)
 
     def jax_rec(*a, **k):
         q, s = jax_q(*a, **k)
@@ -135,6 +163,7 @@ def codes(monkeypatch):
 
     monkeypatch.setattr(JQ, "quantize_int", jax_rec)
     monkeypatch.setattr(TQ, "quantize_int", port_rec)
+    monkeypatch.setattr(JMOE, "_top_k_dispatch", jax_dispatch)
     return rec
 
 
@@ -142,7 +171,9 @@ def first_flip(rec) -> tuple[int, int, int] | None:
     """(call index, flipped codes, codes in the call) of the first
     fake-quant call whose codes differ, or None.  Every earlier call agrees
     bit for bit; the first differing one may differ only by one code step
-    in at most ``FLIP_CODES`` of its codes."""
+    in at most ``FLIP_CODES`` of its codes.  Failing that, the same of the
+    first MoE dispatch whose expert choices differ, each a near-tie of the
+    reference's gates within ``EXPERT_TIE`` (:func:`expert_flip`)."""
     jax.effects_barrier()
     got, want = rec["port"], rec["jax"]
     assert len(got) == len(want), (len(got), len(want))
@@ -154,7 +185,8 @@ def first_flip(rec) -> tuple[int, int, int] | None:
             assert d.max() == 1, f"call {i}: codes differ by {d.max()}"
             assert flips <= FLIP_CODES * d.size, (i, flips, d.size)
             return i, flips, d.size
-    return None
+    return expert_flip(rec["experts"]["port"], rec["experts"]["jax"],
+                       EXPERT_TIE)
 
 
 def assert_close_or_flipped(got, want, flip, what: str) -> None:
@@ -166,8 +198,8 @@ def assert_close_or_flipped(got, want, flip, what: str) -> None:
         np.testing.assert_allclose(got, want, err_msg=what, **F32_TOL)
         return
     call, flips, size = flip
-    print(f"{what}: fake-quant flip at call {call}: {flips} of {size} "
-          f"codes; max |diff| {np.abs(got - want).max():.6g}")
+    print(f"{what}: fake-quant or expert flip at call {call}: {flips} of "
+          f"{size}; max |diff| {np.abs(got - want).max():.6g}")
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=FLIP_FRAC * np.abs(want).max(),
                                err_msg=what)
@@ -427,6 +459,232 @@ class TestAttention:
 
 
 # ---------------------------------------------------------------------------
+# 2b. the recurrences (models/ssm.py) and MoE dispatch (models/moe.py)
+# ---------------------------------------------------------------------------
+
+
+def gla_inputs(t, *, seed=42, b=2, h=3, dk=8, dv=8, decay=(0.01, 0.5),
+               use_u=True):
+    """q, k, v, log_w (and u) as numpy from default_rng(seed), the
+    reference's test inputs (``tests/test_ssm_gla.py``)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, t, h, dk)).astype(np.float32)
+    k = rng.normal(size=(b, t, h, dk)).astype(np.float32)
+    v = rng.normal(size=(b, t, h, dv)).astype(np.float32)
+    lw = (-rng.uniform(*decay, size=(b, t, h, dk))).astype(np.float32)
+    u = rng.normal(size=(h, dk)).astype(np.float32) if use_u else None
+    return q, k, v, lw, u
+
+
+def seq_ref(q, k, v, lw, u, inclusive):
+    """The sequential recurrence through the port's gla_decode_step."""
+    b, t, h, dk = q.shape
+    s = torch.zeros((b, h, dk, v.shape[-1]))
+    ys = []
+    for i in range(t):
+        y, s = TSSM.gla_decode_step(q[:, i], k[:, i], v[:, i], lw[:, i], s,
+                                    u=u, inclusive=inclusive)
+        ys.append(y)
+    return torch.stack(ys, 1), s
+
+
+def jt(*xs):
+    """numpy arrays (or None) as (JAX arrays, CPU tensors)."""
+    return ([None if x is None else jnp.asarray(x) for x in xs],
+            [None if x is None else t(x) for x in xs])
+
+
+class TestSsm:
+    @pytest.mark.parametrize("inclusive,use_u", [(True, False), (False, True),
+                                                 (False, False)])
+    @pytest.mark.parametrize("steps,chunk", [(16, 16), (37, 16), (64, 8),
+                                             (5, 32)])
+    def test_chunked_gla(self, inclusive, use_u, steps, chunk):
+        q, k, v, lw, u = gla_inputs(steps, use_u=use_u)
+        (jq, jk, jv, jlw, ju), (tq, tk, tv, tlw, tu) = jt(q, k, v, lw, u)
+        yw, sw = JSSM.chunked_gla(jq, jk, jv, jlw, u=ju, inclusive=inclusive,
+                                  chunk=chunk)
+        yg, sg = TSSM.chunked_gla(tq, tk, tv, tlw, u=tu, inclusive=inclusive,
+                                  chunk=chunk)
+        assert yg.dtype == sg.dtype == torch.float32
+        np.testing.assert_allclose(n(yg), n(yw), **F32_TOL)
+        np.testing.assert_allclose(n(sg), n(sw), **F32_TOL)
+        # the reference's own check: chunked == sequential within 2e-4
+        ys, ss = seq_ref(tq, tk, tv, tlw, tu, inclusive)
+        np.testing.assert_allclose(n(yg), n(ys), atol=2e-4)
+        np.testing.assert_allclose(n(sg), n(ss), atol=2e-4)
+
+    @pytest.mark.parametrize("seed", range(6))
+    def test_chunked_gla_property(self, seed):
+        # the reference's property test, at numpy-drawn examples
+        rng = np.random.default_rng(seed)
+        steps, chunk = int(rng.integers(1, 49)), int(rng.choice([4, 8, 16]))
+        q, k, v, lw, _ = gla_inputs(steps, seed=seed, b=1, h=2, dk=4, dv=4,
+                                    decay=(0.0, float(rng.uniform(0, 2))),
+                                    use_u=False)
+        (jq, jk, jv, jlw), (tq, tk, tv, tlw) = jt(q, k, v, lw)
+        yg, _ = TSSM.chunked_gla(tq, tk, tv, tlw, inclusive=True,
+                                 chunk=chunk)
+        yw, _ = JSSM.chunked_gla(jq, jk, jv, jlw, inclusive=True, chunk=chunk)
+        np.testing.assert_allclose(n(yg), n(yw), **F32_TOL)
+        ys, _ = seq_ref(tq, tk, tv, tlw, None, True)
+        np.testing.assert_allclose(n(yg), n(ys), atol=5e-4)
+
+    @pytest.mark.parametrize("inclusive", (True, False))
+    def test_decode_step(self, inclusive):
+        q, k, v, lw, u = gla_inputs(1, seed=7)
+        s0 = normal(2, 3, 8, 8, seed=8)
+        (jq, jk, jv, jlw, ju, js), (tq, tk, tv, tlw, tu, ts) = jt(
+            q[:, 0], k[:, 0], v[:, 0], lw[:, 0], u, s0)
+        yw, sw = JSSM.gla_decode_step(jq, jk, jv, jlw, js, u=ju,
+                                      inclusive=inclusive)
+        yg, sg = TSSM.gla_decode_step(tq, tk, tv, tlw, ts, u=tu,
+                                      inclusive=inclusive)
+        np.testing.assert_allclose(n(yg), n(yw), **F32_TOL)
+        np.testing.assert_allclose(n(sg), n(sw), **F32_TOL)
+
+    def test_state_continuation(self):
+        """Splitting a sequence across two chunked_gla calls with the state
+        handed over (s0) equals one pass, and the JAX package's."""
+        q, k, v, lw, _ = gla_inputs(32, seed=3, b=1, h=2, dk=4, dv=4,
+                                    decay=(0.01, 0.3), use_u=False)
+        (jq, jk, jv, jlw), (tq, tk, tv, tlw) = jt(q, k, v, lw)
+        y_full, s_full = TSSM.chunked_gla(tq, tk, tv, tlw, inclusive=True,
+                                          chunk=8)
+        y1, s1 = TSSM.chunked_gla(tq[:, :16], tk[:, :16], tv[:, :16],
+                                  tlw[:, :16], inclusive=True, chunk=8)
+        y2, s2 = TSSM.chunked_gla(tq[:, 16:], tk[:, 16:], tv[:, 16:],
+                                  tlw[:, 16:], inclusive=True, chunk=8, s0=s1)
+        np.testing.assert_allclose(n(torch.cat([y1, y2], 1)), n(y_full),
+                                   atol=2e-4)
+        np.testing.assert_allclose(n(s2), n(s_full), atol=2e-4)
+        _, js1 = JSSM.chunked_gla(jq[:, :16], jk[:, :16], jv[:, :16],
+                                  jlw[:, :16], inclusive=True, chunk=8)
+        jy2, js2 = JSSM.chunked_gla(jq[:, 16:], jk[:, 16:], jv[:, 16:],
+                                    jlw[:, 16:], inclusive=True, chunk=8,
+                                    s0=js1)
+        np.testing.assert_allclose(n(y2), n(jy2), **F32_TOL)
+        np.testing.assert_allclose(n(s2), n(js2), **F32_TOL)
+
+    def test_causal_conv1d(self):
+        x, w = normal(2, 12, 6), normal(4, 6, seed=1)
+        y_full, cache = TSSM.causal_conv1d(t(x), t(w))
+        jy, jcache = JSSM.causal_conv1d(jnp.asarray(x), jnp.asarray(w))
+        np.testing.assert_allclose(n(y_full), n(jy), **F32_TOL)
+        np.testing.assert_allclose(n(cache), n(jcache), **F32_TOL)
+        # decode token by token through the cache == the whole sequence
+        cache, jcache, ys = None, None, []
+        for i in range(12):
+            y, cache = TSSM.causal_conv1d(t(x[:, i:i + 1]), t(w), cache)
+            jy, jcache = JSSM.causal_conv1d(jnp.asarray(x[:, i:i + 1]),
+                                            jnp.asarray(w), jcache)
+            np.testing.assert_allclose(n(y), n(jy), **F32_TOL)
+            ys.append(y)
+        np.testing.assert_allclose(n(torch.cat(ys, 1)), n(y_full), atol=1e-5)
+        np.testing.assert_allclose(n(cache), n(jcache), **F32_TOL)
+
+    def test_rwkv6_chunk_overflows_like_the_reference(self):
+        # exp(-cumsum(log_w)) over one chunk at RWKV6's initial decay
+        # (log w = -exp(-1)): from token 239 on the chunk's factors leave
+        # float32 and both packages turn non-finite at the same positions
+        # (ROADMAP.md, "Reference state"); 64 and 200 tokens stay finite
+        # and agree.  At 232 tokens both are finite but q * exp(ccum)
+        # reaches float32's denormals, which XLA on the CPU flushes to
+        # zero and torch keeps: the packages differ by 3e-3 of the largest
+        # value, the port stays on the sequential recurrence, and with
+        # denormals flushed in torch too the two agree within 1e-5.
+        for steps in (64, 200, 232, 240, 248, 256):
+            rng = np.random.default_rng(0)
+            q, k, v = (rng.normal(size=(1, steps, 2, 64)).astype(np.float32)
+                       for _ in range(3))
+            lw = np.full((1, steps, 2, 64), -np.exp(-1.0), np.float32)
+            u = np.full((2, 64), 0.5, np.float32)
+            (jq, jk, jv, jlw, ju), (tq, tk, tv, tlw, tu) = jt(q, k, v, lw, u)
+            yw, _ = JSSM.chunked_gla(jq, jk, jv, jlw, u=ju, chunk=256)
+            yg, _ = TSSM.chunked_gla(tq, tk, tv, tlw, u=tu, chunk=256)
+            bad_w, bad_g = ~np.isfinite(n(yw)), ~np.isfinite(n(yg))
+            np.testing.assert_array_equal(bad_g, bad_w, err_msg=str(steps))
+            scale = np.abs(n(yw)).max()
+            if steps <= 200:
+                assert not bad_g.any()
+                np.testing.assert_allclose(n(yg), n(yw), rtol=0,
+                                           atol=1e-5 * scale)
+            elif steps == 232:
+                assert not bad_g.any()
+                gap = np.abs(n(yg) - n(yw)).max() / scale
+                assert 2e-3 < gap < 4e-3, gap
+                want, _ = seq_ref(tq, tk, tv, tlw, tu, False)
+                np.testing.assert_allclose(n(yg), n(want), rtol=2e-4,
+                                           atol=2e-4)
+                assert torch.set_flush_denormal(True)
+                try:
+                    flushed, _ = TSSM.chunked_gla(tq, tk, tv, tlw, u=tu,
+                                                  chunk=256)
+                finally:
+                    torch.set_flush_denormal(False)
+                np.testing.assert_allclose(n(flushed), n(yw), rtol=0,
+                                           atol=1e-5 * scale)
+            else:
+                assert np.isnan(n(yw)).any()
+                first = np.argwhere(bad_g.any(axis=(0, 2, 3))).min()
+                assert first == 239, steps
+
+
+class TestMoeDispatch:
+    @pytest.mark.parametrize("g,s,e,k,cap", [
+        (2, 64, 8, 2, 20),        # room for every choice
+        (1, 48, 4, 2, 8),         # overflow drops (cap < S·k/E)
+        (3, 4, 40, 8, 1),         # granite-3b's decode: 4 tokens, cap 1
+        (1, 256, 40, 8, 64),      # granite-3b's prefill group
+    ])
+    def test_top_k_dispatch(self, g, s, e, k, cap):
+        logits = normal(g, s, e, scale=2.0)
+        gates = np.asarray(jax.nn.softmax(jnp.asarray(logits), axis=-1))
+        jd, jc, jaux = JMOE._top_k_dispatch(jnp.asarray(gates), k, cap)
+        td, tc, taux = TMOE._top_k_dispatch(t(gates), k, cap)
+        assert td.dtype == torch.bool and tc.dtype == torch.float32
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(_bits(tc), _bits(jc))
+        np.testing.assert_allclose(taux.item(), float(jaux), rtol=1e-6)
+
+    def test_top_k_ties_take_the_lower_expert(self):
+        gates = np.array([[[0.1, 0.3, 0.3, 0.2, 0.3, 0.3]]], np.float32)
+        _, ji = jax.lax.top_k(jnp.asarray(gates), 3)
+        tv, ti = TMOE._top_k(t(gates), 3)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        assert ti.tolist() == [[[1, 2, 4]]]
+        jd, jc, _ = JMOE._top_k_dispatch(jnp.asarray(gates), 3, 1)
+        td, tc, _ = TMOE._top_k_dispatch(t(gates), 3, 1)
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(_bits(tc), _bits(jc))
+
+    def test_expert_fake_quant_is_per_expert_and_column(self):
+        # fake_quant(w, bits, 1) on (E, d, ff): one scale per expert and
+        # output column, bit for bit with the reference
+        w = normal(4, 16, 8, scale=0.3) * np.arange(1, 5)[:, None, None]
+        got = fake_quant(t(w.astype(np.float32)), 8, 1)
+        want = JQ.fake_quant(jnp.asarray(w, jnp.float32), 8, 1)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        _, scale = quantize_int(t(w.astype(np.float32)), 8, 1)
+        assert scale.shape == (4, 1, 8)
+
+    def test_group_must_divide_the_tokens_like_the_reference(self):
+        # 4 x 65 = 260 tokens: more than one 256-token group and not a
+        # multiple of it; the reference's reshape raises TypeError
+        # (ROADMAP.md, "Reference state"), and so does the port
+        jcfg, japi, params, _, api, model = zoo("granite-moe-1b-a400m")
+        tokens = np.random.default_rng(SEED).integers(0, jcfg.vocab, (4, 65))
+        with pytest.raises(TypeError, match="cannot reshape"):
+            japi.prefill(params, jnp.asarray(tokens), 65)
+        with pytest.raises(TypeError, match="cannot reshape"):
+            api.prefill(model, t(tokens), 65)
+        for rows in (4, 8):           # 256 and 512 tokens are whole groups
+            x = t(normal(rows, 64, jcfg.d_model))
+            y, _ = model.blocks[0].moe(x)
+            assert y.shape == x.shape
+
+
+# ---------------------------------------------------------------------------
 # 3. whole models
 # ---------------------------------------------------------------------------
 
@@ -471,7 +729,12 @@ class TestModels:
         got, aux = api.forward_train(model, pb)
         assert got.shape == (B, S, jcfg.vocab_padded)
         np.testing.assert_allclose(n(got), n(want), **F32_TOL)
-        assert aux.item() == float(jaux) == 0.0
+        if jcfg.family == "moe":
+            # the blocks' mean load-balance loss
+            assert aux.item() > 0
+            np.testing.assert_allclose(aux.item(), float(jaux), **F32_TOL)
+        else:
+            assert aux.item() == float(jaux) == 0.0
 
     @pytest.mark.parametrize("arch", ARCHS)
     def test_forward_dcim_on(self, arch, codes):
@@ -531,6 +794,31 @@ class TestModels:
         ulp = 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 7)
         np.testing.assert_allclose(n(got), want, rtol=0, atol=4 * ulp)
 
+    @pytest.mark.parametrize("arch", RECURRENT)
+    def test_recurrent_decode_bf16(self, arch):
+        # bf16 params and compute, DCIM off: prefill and decode steps with
+        # the state cast as the reference casts it (shift_t, conv), the
+        # logits within 8 bfloat16 ulps at their magnitude (two ulps per
+        # rounding of differently ordered sums, over prefill and decode)
+        jcfg, japi, params, _, api, model = zoo(
+            arch, dcim_enabled=False, param_dtype="bfloat16",
+            compute_dtype="bfloat16")
+        jb, pb = batch_of(jcfg)
+        jl, js = japi.prefill(params, jb["tokens"][:, :PROMPT], S)
+        pl, ps = api.prefill(model, pb["tokens"][:, :PROMPT], S)
+        for step in range(PROMPT, PROMPT + DECODE):
+            jl, js = japi.decode_step(params, js,
+                                      jb["tokens"][:, step:step + 1])
+            pl, ps = api.decode_step(model, ps,
+                                     pb["tokens"][:, step:step + 1])
+        assert pl.dtype == torch.bfloat16
+        for key, x in ps.items():
+            assert str(x.dtype).removeprefix("torch.") == \
+                np.asarray(js[key]).dtype.name, key
+        want = n(jl)
+        ulp = 2.0 ** (math.floor(math.log2(np.abs(want).max())) - 7)
+        np.testing.assert_allclose(n(pl), want, rtol=0, atol=8 * ulp)
+
     def test_vlm_prefill_drops_the_image_prefix(self, codes):
         # The reference's prefill embeds only the tokens (ROADMAP.md,
         # "Reference state"), while forward_train prepends the projected
@@ -556,13 +844,68 @@ class TestModels:
         got = cross_entropy_loss(t(logits), t(labels))
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
-    @pytest.mark.parametrize("family", ("moe", "ssm", "hybrid"))
-    def test_unported_families_raise(self, family):
-        cfg = port_configs.smoke_config("qwen3-4b").replace(family=family)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            get_model(cfg)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            get_model(port_configs.get_config("zamba2-1.2b"))
+    @pytest.mark.parametrize("arch", RECURRENT)
+    def test_decode_continues_prefill(self, arch):
+        # float32 without fake-quant: one decode step after a prefill of
+        # S - 1 tokens gives the prefill of S's last logits and its state
+        jcfg, _, _, _, api, model = zoo(arch, dcim_enabled=False)
+        _, pb = batch_of(jcfg, s=PROMPT + 1)
+        want, full = api.prefill(model, pb["tokens"], PROMPT + 1)
+        _, state = api.prefill(model, pb["tokens"][:, :-1], PROMPT + 1)
+        got, state = api.decode_step(model, state, pb["tokens"][:, -1:])
+        np.testing.assert_allclose(n(got[:, -1]), n(want[:, -1]), **F32_TOL)
+        for key in full:
+            np.testing.assert_allclose(n(state[key]), n(full[key]),
+                                       err_msg=key, **F32_TOL)
+
+    @pytest.mark.parametrize("arch", ("granite-moe-1b-a400m", "rwkv6-7b",
+                                      "zamba2-1.2b"))
+    def test_family_decode_state_layout(self, arch):
+        # the recurrent states keep the reference's dtypes: token shifts
+        # and conv caches in the compute dtype, wkv / ssd in float32
+        replace = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+        jcfg = jax_configs.smoke_config(arch).replace(**replace)
+        api = get_model(port_configs.smoke_config(arch).replace(**replace))
+        want = values_of(jax_get_model(jcfg).init_decode_state(3, 10))
+        got = api.init_decode_state(3, 10, device="cpu")
+        assert sorted(got) == sorted(want)
+        for key, x in got.items():
+            assert tuple(x.shape) == want[key].shape, key
+            assert str(x.dtype).removeprefix("torch.") == \
+                want[key].dtype.name, key
+            assert not x.any(), key
+
+    @pytest.mark.parametrize("arch", RECURRENT)
+    def test_recurrent_decode_state_round_trip(self, arch):
+        jcfg, japi, params, pcfg, *_ = zoo(arch)
+        _, state = japi.prefill(params, batch_of(jcfg)[0]["tokens"], S + 2)
+        tree = jax.tree.map(np.asarray, state)
+        got = decode_state_from_numpy(pcfg, tree, device="cpu")
+        f32 = {"rwkv6-7b": "wkv", "zamba2-1.2b": "ssd"}[arch]
+        assert got[f32].dtype == torch.float32
+        back = decode_state_to_numpy(got)
+        for key in tree:
+            np.testing.assert_array_equal(back[key], tree[key])
+        with pytest.raises(ValueError, match="no decode state"):
+            decode_state_from_numpy(pcfg, dict(tree, extra=tree["pos"]),
+                                    device="cpu")
+
+    def test_zamba2_carries_one_shared_block(self):
+        # one set of shared-attention weights serves every invocation site,
+        # each with its own KV cache
+        jcfg, japi, params, pcfg, api, model = zoo("zamba2-1.2b")
+        assert "shared_attn" in params and "shared_attn" not in \
+            params["mamba"]
+        n_shared = sum(p.numel() for p in model.shared_attn.parameters())
+        n_jax = sum(x.size for x in jax.tree.leaves(params["shared_attn"]))
+        assert n_shared == n_jax
+        assert sum(x.size for x in jax.tree.leaves(params)) == \
+            sum(p.numel() for p in model.parameters())
+        sites = len(range(0, pcfg.n_layers, pcfg.attn_every))
+        state = api.init_decode_state(B, 8, device="cpu")
+        assert state["k"].shape[0] == sites == 2
+        _, state = api.prefill(model, batch_of(jcfg, s=6)[1]["tokens"], 8)
+        assert not torch.equal(state["k"][0], state["k"][1])
 
     def test_init_params_draws_the_law(self):
         cfg = port_configs.smoke_config("whisper-tiny")
@@ -629,12 +972,13 @@ class TestModels:
 # 4. configs
 # ---------------------------------------------------------------------------
 
-PORT_ARCHS = ARCHS + ("zamba2-1.2b",)
+PORT_ARCHS = ARCHS
 
 
 def test_port_carries_seven_configs():
+    # since the rest of the zoo was ported: all ten of the reference's
     assert sorted(port_configs.list_archs()) == sorted(PORT_ARCHS)
-    assert set(port_configs.list_archs()) < set(jax_configs.list_archs())
+    assert port_configs.list_archs() == jax_configs.list_archs()
 
 
 @pytest.mark.parametrize("arch", PORT_ARCHS)
@@ -656,3 +1000,27 @@ def test_qwen3_4b_full_width_size():
     norms = cfg.n_layers * (2 * cfg.d_model + 2 * cfg.hd) + cfg.d_model
     assert n_params == cfg.param_count() + norms == 4_411_424_256
     assert round(n_params * 2 / 1e9, 2) == 8.82      # GB in bfloat16
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-1b-a400m",
+                                  "granite-moe-3b-a800m", "rwkv6-7b",
+                                  "zamba2-1.2b"))
+def test_full_width_parameters_equal_the_reference(arch):
+    # the full config's parameters, counted on the meta device, against the
+    # reference's tree from jax.eval_shape (nothing allocated): the same
+    # count and the same bytes per dtype (bf16 weights, f32 norms and
+    # recurrence constants)
+    jcfg = jax_configs.get_config(arch)
+    tree = jax.eval_shape(
+        lambda key: values_of(jax_get_model(jcfg).init_params(key)),
+        jax.random.PRNGKey(SEED))
+    want: dict = {}
+    for x in jax.tree.leaves(tree):
+        want[x.dtype.name] = want.get(x.dtype.name, 0) + math.prod(x.shape)
+    cfg = port_configs.get_config(arch)
+    model = model_class(cfg)(cfg, device="meta")
+    got: dict = {}
+    for p in model.parameters():
+        key = str(p.dtype).removeprefix("torch.")
+        got[key] = got.get(key, 0) + p.numel()
+    assert got == want
