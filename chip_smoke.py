@@ -24,6 +24,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
                the same calls with ``device="cpu"`` and the search results
                against the scalar oracle; the bounds of its two device
                kernels (A1 roll-up, A2 frontier masks);
+  2b. shard    the sharded compiler engine on the card's mesh
+               (``spec_sweep_mesh()``, every visible card) and on four
+               entries of card 0 (``["cuda:0"] * 4``): a 130-spec request
+               (``spec_variants(130, seed=0)``) at the compiler phase's full
+               lattice through ``mso_search_many_sharded(mode="jit")`` equal
+               to ``mso_search_many`` bit for bit (both wall times, the peak
+               device memory, and the characterisation time against the
+               traced execute's device busy time printed); the 13-spec
+               ragged drill in jit, pmap and multihost on four entries
+               equal to the unsharded pass; A3, the sharded frontier mask,
+               through ``design_space_sweep_many_sharded`` of the four
+               scenario specs on both meshes, its frontiers equal to the
+               compiler phase's, traced (device busy and kernels beside
+               A2's) and its bound from the pairs its two phases compare;
+               two gloo ranks (``torch.multiprocessing``, ``file://`` init
+               in ``build/shard``), each its lane slice of the 13 specs on
+               the card under ``mode="multihost"``, every rank's gathered
+               result equal to the single-process pass; and a
+               ``SynthesisService(mode="sharded")`` answering the four
+               scenario specs in one sharded-jit pass, equal to the
+               compiler phase's search;
   3. mac       the ``dcim_mac`` kernels at the qwen3-4b GEMM shapes
                (``gemm_inventory``, seq 256) plus ragged shapes and an
                aligned square one, driven through the public wrappers with
@@ -413,12 +434,14 @@ def phase_compiler() -> dict:
     # (A2).  The busy share is taken against the untraced wall time of the
     # same call above; a first traced call absorbs the tracer's start-up.
     _device_profile(lambda: torch.zeros(1, device="cuda"))
+    traced = {}
     for what, fn in (
             ("design_space_sweep_many", lambda: C.design_space_sweep_many(
                 specs, tech, config=config, device="cuda")),
             ("frontier_indices", lambda: [s.frontier_indices()
                                           for s in sw_g])):
         wall, busy, n = _device_profile(fn)
+        traced[what] = (busy, n)
         log(f"compiler[cuda, traced]: {what}: device busy {busy:.6f} s over "
             f"{n} kernels, {100 * busy / walls['cuda'][what]:.3f}% of the "
             f"untraced wall {walls['cuda'][what]:.6f} s (traced wall "
@@ -428,7 +451,8 @@ def phase_compiler() -> dict:
         f"{a1[0]:.6f} ms ({a1[1]}), A2 chunk_dominated (4 frontiers) "
         f"{a2[0]:.6f} ms ({a2[1]})")
     return {"language": res_g[names.index("language")],
-            "results": {"cuda": res_g, "cpu": res_c}}
+            "results": {"cuda": res_g, "cpu": res_c}, "fronts": fr_g,
+            "a2_traced": traced["frontier_indices"]}
 
 
 def _a1_bound_ms(specs, tech, config) -> tuple[float, str]:
@@ -472,6 +496,232 @@ def _a2_bound_ms(sweeps) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# 2b. shard
+# ---------------------------------------------------------------------------
+
+
+def _result_texts(results) -> list[str]:
+    """Search results as text: ``n_evaluated``, then every explored and
+    frontier MacroPPA in order (``repr`` of ``asdict``: every float's bits
+    and every dict's order, ``area_breakdown`` included)."""
+    return [repr((r.n_evaluated, [_ppa_repr(p) for p in r.explored],
+                  [_ppa_repr(p) for p in r.frontier])) for r in results]
+
+
+def _shard_rank(rank: int, world: int, work: str) -> None:
+    """One rank of the shard phase's gloo drill: its lane slice of the
+    13-spec request on the card under ``mode="multihost"``, gathered over
+    the group, written to ``work/rank<r>.json``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{work}/init",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        import repro_torch.core as C
+        from repro_torch.core import subcircuits as sc
+        from repro_torch.core.shardspec import (mso_search_many_sharded,
+                                                spec_variants)
+        from repro_torch.parallel import host_spec_mesh
+
+        tech = C.calibrated_tech_for_reference()
+        config = C.LatticeConfig(precision_modes=3,
+                                 approx_cells=sc.APPROX_CELLS)
+        mesh = host_spec_mesh(["cuda:0"])
+        got = mso_search_many_sharded(spec_variants(13, seed=5), None, tech,
+                                      config=config, mesh=mesh,
+                                      mode="multihost")
+        Path(work, f"rank{rank}.json").write_text(json.dumps({
+            "mesh": list(mesh.devices.shape),
+            "results": _result_texts(got)}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _a3_bound_ms(sweeps, n_dev: int) -> tuple[float, str, int]:
+    """Least time of the sharded frontier masks (A3,
+    ``pareto.nondominated_mask_sharded`` on ``n_dev`` entries) over the
+    pairs its two phases compare for this run's data: each shard's blocks
+    against themselves (real rows only), then the phase-1 survivors against
+    every row; two float64 compares per objective per pair, against the
+    objectives read once and the mask written once.  Also returns the pair
+    count."""
+    import torch
+
+    from repro_torch.core.pareto import chunk_dominated
+
+    nbytes = pairs = k = 0
+    for sw in sweeps:
+        cand = np.flatnonzero(sw.lattice.valid & sw.ppa.meets)
+        if cand.size == 0:
+            cand = np.flatnonzero(sw.lattice.valid)
+        objs = sw.objectives()[cand]
+        n, k = objs.shape
+        m = -(-n // n_dev)
+        c = max(64, min(1024, m))
+        rows = torch.as_tensor(objs, dtype=torch.float64, device="cuda")
+        survivors = 0
+        m_p = -(-m // c) * c                     # a shard's whole blocks
+        for lo in range(0, n_dev * m_p, m_p):
+            for s in range(lo, min(lo + m_p, n), c):
+                blk = rows[s:min(s + c, n)]
+                pairs += blk.shape[0] ** 2
+                survivors += int((~chunk_dominated(blk, blk, 1e-12)).sum())
+        pairs += survivors * n
+        nbytes += 8 * n * k + n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * k * pairs / FP64_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
+
+
+def phase_shard(compiler: dict) -> None:
+    """The sharded compiler engine on the card (module doc, phase 2b),
+    held against the compiler phase's cuda results (themselves held bit for
+    bit against ``device="cpu"``) and the unsharded engine."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    import repro_torch.core as C
+    from repro_torch.core import engine as E
+    from repro_torch.core import subcircuits as sc
+    from repro_torch.core.shardspec import (design_space_sweep_many_sharded,
+                                            mso_search_many_sharded,
+                                            spec_variants)
+    from repro_torch.parallel import host_spec_mesh, spec_sweep_mesh
+    from repro_torch.service import (FrontierCache, SynthesisRequest,
+                                     SynthesisService)
+
+    tech = C.calibrated_tech_for_reference()
+    scl = C.SubcircuitLibrary(tech).build()
+    config = C.LatticeConfig(precision_modes=3, approx_cells=sc.APPROX_CELLS)
+    card, four = spec_sweep_mesh(), spec_sweep_mesh(["cuda:0"] * 4)
+    log(f"shard: meshes: every card {[str(d) for d in card.devices.flat]}, "
+        f"four entries {[str(d) for d in four.devices.flat]}")
+
+    # 1. a 130-spec request at full width on the card's mesh
+    specs = spec_variants(130, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = C.mso_search_many(specs, scl, tech, config=config, device="cuda")
+    t1 = time.perf_counter()
+    got = mso_search_many_sharded(specs, scl, tech, config=config,
+                                  mesh=card, mode="jit")
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    n_points = 130 * len(C.DesignLattice.enumerate(specs[0], config=config))
+    check(_result_texts(got) == _result_texts(ref),
+          "shard: 130 specs: the sharded search differs from mso_search_many")
+    t3 = time.perf_counter()
+    plan = E.plan(specs, tech, (sc.MemCellKind.SRAM_6T,), mode="sharded-jit",
+                  mesh=card, config=config)
+    t_char = time.perf_counter() - t3
+    wall, busy, n_k = _device_profile(lambda: E.execute(plan))
+    log(f"shard: 130 specs x {n_points // 130} points ({n_points} in all, "
+        f"{len(plan.groups)} group): mso_search_many {t1 - t0:.3f} s, "
+        f"mso_search_many_sharded (jit, {card.devices.size} card) "
+        f"{t2 - t1:.3f} s, bit for bit equal; peak device memory "
+        f"{peak / 1e9:.3f} GB; characterisation (engine.plan) {t_char:.3f} "
+        f"s against the traced execute: device busy {busy:.6f} s over "
+        f"{n_k} kernels in {wall:.3f} s")
+    del ref, got, plan
+
+    # 2. every mode and the ragged split on four entries of the card
+    specs = spec_variants(13, seed=5)
+    ref = _result_texts(C.mso_search_many(specs, scl, tech, config=config,
+                                          device="cuda"))
+    walls = []
+    for mode, mesh in (("jit", four), ("pmap", four),
+                       ("multihost", host_spec_mesh(["cuda:0"] * 4))):
+        t0 = time.perf_counter()
+        got = mso_search_many_sharded(specs, scl, tech, config=config,
+                                      mesh=mesh, mode=mode)
+        walls.append(f"{mode} {time.perf_counter() - t0:.3f} s")
+        check(_result_texts(got) == ref,
+              f"shard: 13 specs in {mode} on {mesh.devices.shape} entries "
+              "differ from mso_search_many")
+    log(f"shard: 13 specs (ragged on 4 entries) in every mode equal to "
+        f"mso_search_many: {', '.join(walls)}")
+
+    # 3. A3 at lattice scale: the scenario sweeps' frontiers through the
+    #    sharded mask, on the card's mesh and on four entries
+    scen = list(C.scenario_specs().values())
+    for label, mesh in (("1 entry", card), ("4 entries", four)):
+        sweeps = design_space_sweep_many_sharded(scen, tech, config=config,
+                                                 mesh=mesh, mode="jit")
+        t0 = time.perf_counter()
+        fronts = [s.frontier_indices() for s in sweeps]
+        t_front = time.perf_counter() - t0
+        check(fronts == compiler["fronts"],
+              f"shard: A3 frontiers on {label} differ from the compiler "
+              "phase's")
+        wall, busy, n_k = _device_profile(
+            lambda: [s.frontier_indices() for s in sweeps])
+        bound, by, pairs = _a3_bound_ms(sweeps, mesh.devices.size)
+        a2_busy, a2_kernels = compiler["a2_traced"]
+        log(f"shard: A3 nondominated_mask_sharded on {label} "
+            f"(4 frontiers): frontier_indices {t_front:.3f} s == the "
+            f"compiler phase's; traced: device busy {busy:.6f} s over {n_k} "
+            f"kernels ({wall:.3f} s wall; A2 in the compiler phase: "
+            f"{a2_busy:.6f} s over {a2_kernels} kernels); bound "
+            f"{bound:.6f} ms ({by}, {pairs} pairs)")
+
+    # 4. the multi-process branch: two gloo ranks on the one card
+    work = ROOT / "build" / "shard"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.spawn(_shard_rank, args=(2, str(work)), nprocs=2, join=False)
+    deadline = time.monotonic() + 300
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  "shard: the 2-process drill did not finish in 300 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    for rank in range(2):
+        out = json.loads((work / f"rank{rank}.json").read_text())
+        check(out["mesh"] == [2, 1] and out["results"] == ref,
+              f"shard: rank {rank}'s gathered result differs from the "
+              "single-process pass")
+    log(f"shard: 2 gloo ranks on the card, each its lane slice of 13 specs "
+        f"(multihost): every rank's gathered result equal to the "
+        f"single-process pass ({time.perf_counter() - t0:.3f} s with "
+        f"start-up)")
+
+    # 5. the service in a sharded mode on the card
+    modes = []
+    hook = lambda plan: modes.append(plan.placement.mode)
+    E.add_execute_hook(hook)
+    try:
+        svc = SynthesisService(mode="sharded",
+                               cache=FrontierCache(store_dir=work / "store"))
+        t0 = time.perf_counter()
+        resp = svc.serve([SynthesisRequest(spec=s, config=config)
+                          for s in scen])
+        t_svc = time.perf_counter() - t0
+    finally:
+        E.remove_execute_hook(hook)
+    check(modes == ["sharded-jit"] and svc.stats.fused_passes == 1,
+          f"shard: service passes {modes}")
+    check(_result_texts(r.result for r in resp)
+          == _result_texts(compiler["results"]["cuda"]),
+          "shard: the sharded service's frontiers differ from the compiler "
+          "phase's")
+    log(f"shard: SynthesisService(mode=\"sharded\") on the card: 4 scenario "
+        f"specs in one sharded-jit pass, {t_svc:.3f} s, equal to the "
+        f"compiler phase's search")
 
 
 # ---------------------------------------------------------------------------
@@ -1424,11 +1674,7 @@ def phase_serving(results: dict, artifact: Path) -> dict:
 
 
 def _same_result(a, b) -> bool:
-    return (a.n_evaluated == b.n_evaluated
-            and [_ppa_repr(p) for p in a.frontier]
-            == [_ppa_repr(p) for p in b.frontier]
-            and [_ppa_repr(p) for p in a.explored]
-            == [_ppa_repr(p) for p in b.explored])
+    return _result_texts([a]) == _result_texts([b])
 
 
 def phase_service(results: dict, serving: dict) -> str:
@@ -2094,6 +2340,8 @@ def main() -> int:
     t1 = time.perf_counter()
     chosen = phase_compiler()
     t2 = time.perf_counter()
+    phase_shard(chosen)
+    t2b = time.perf_counter()
     kernels, wk = phase_mac(chosen["language"])
     t3 = time.perf_counter()
     kernels += phase_csa(wk)
@@ -2112,10 +2360,10 @@ def main() -> int:
     phase_model(pick, artifact)
     t10 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
-        f"mac {t3 - t2:.3f} s, csa {t4 - t3:.3f} s, ssm {t5 - t4:.3f} s, "
-        f"autotune {t6 - t5:.3f} s, profile {t7 - t6:.3f} s, serving "
-        f"{t8 - t7:.3f} s, service {t9 - t8:.3f} s, model "
-        f"{t10 - t9:.3f} s")
+        f"shard {t2b - t2:.3f} s, mac {t3 - t2b:.3f} s, csa {t4 - t3:.3f} s, "
+        f"ssm {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
+        f"{t7 - t6:.3f} s, serving {t8 - t7:.3f} s, service "
+        f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

@@ -12,6 +12,7 @@ in the JAX package's ``repro.core``:
   batched     the whole design lattice in one float64 pass on a device
   engine      unified execution engine: plan -> place -> execute -> extract
   multispec   N specs in one spec-stacked pass
+  shardspec   N specs sharded over a device mesh (+ ``multihost``)
   macro       spec -> design -> PPA roll-up (+ silicon calibration)
   netlist     RTL / structural netlist emission
   gatesim     functional gate-level simulation of synthesized trees
@@ -41,8 +42,9 @@ from .netlist import emit_verilog, tree_netlist
 from .multispec import (design_space_sweep_many, evaluate_many,
                         frontier_union, mso_search_many, scenario_specs)
 from .pareto import (PARETO_EPS, dominates, nondominated_mask,
-                     nondominated_mask_auto, pareto_chunk_size, pareto_front,
-                     pareto_indices, preference_grid)
+                     nondominated_mask_auto, nondominated_mask_sharded,
+                     pareto_chunk_size, pareto_front, pareto_indices,
+                     preference_grid)
 from .scl import SubcircuitLibrary
 from .searcher import SearchResult, mso_search, synthesize_one
 from .subcircuits import SC, MemCellKind, MultMuxKind, PPA
@@ -68,9 +70,25 @@ __all__ = [
     "design_space_sweep_many", "evaluate_many", "frontier_union",
     "mso_search_many", "scenario_specs",
     "PARETO_EPS", "dominates", "nondominated_mask", "nondominated_mask_auto",
+    "nondominated_mask_sharded",
     "pareto_chunk_size", "pareto_front", "pareto_indices", "preference_grid",
     "SubcircuitLibrary",
     "SearchResult", "mso_search", "synthesize_one",
     "SC", "MemCellKind", "MultMuxKind", "PPA",
     "TechModel", "delay_scale", "energy_scale",
+    "design_space_sweep_many_sharded", "evaluate_many_sharded",
+    "mso_search_many_sharded", "spec_variants",
 ]
+
+# The sharded entry points are exported lazily (PEP 562), as the JAX
+# package does.
+_SHARDSPEC_EXPORTS = ("design_space_sweep_many_sharded",
+                      "evaluate_many_sharded", "mso_search_many_sharded",
+                      "spec_variants")
+
+
+def __getattr__(name: str):
+    if name in _SHARDSPEC_EXPORTS:
+        from . import shardspec
+        return getattr(shardspec, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

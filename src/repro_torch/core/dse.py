@@ -312,8 +312,8 @@ def cross_workload_codesign(workloads: Mapping[str, Sequence[GemmShape]],
         total_energy = total_energy + energy[wi]
     objs = [(float(total_wall[d]), float(total_energy[d]), float(area[d]))
             for d in range(len(ppas))]
-    # The auto mask: the host mask in the port (the sharded extraction is
-    # not ported) — the same bits as the JAX package's either way.
+    # The auto mask: sharded over the cards at lattice scale on a host with
+    # several, else the host mask — the same bits either way.
     frontier = tuple(pareto_indices(objs, mask_fn=nondominated_mask_auto))
     return CodesignReport(
         workloads=names, designs=mats[0].designs, n_macros=n_macros,

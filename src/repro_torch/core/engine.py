@@ -6,30 +6,45 @@ The path modules are thin strategies over this one pipeline:
   plan      characterize specs (``DesignLattice`` + ``SpecTables``) and
             bucket them into spec-stacked groups by lattice signature
             (:func:`group_key` / :func:`plan`);
-  place     resolve an execution mode and bind it to a torch device
-            (:func:`place` / :class:`Placement`);
+  place     resolve an execution mode and bind it to a torch device or,
+            for the sharded modes, a device mesh (:func:`place` /
+            :class:`Placement`);
   execute   pack each group's operands (:func:`pack_group`), run the shared
             float64 kernel (:func:`repro_torch.core.batched._eval_kernel`)
             under the placed strategy, and finish with the shared single-spec
             numpy tail (:func:`unpack_group`) — per-spec results are
             bit-identical across strategies because the kernel is
             elementwise per spec row (:func:`execute`);
-  extract   the frontier tail: a survivor mask (host predicate or on-device
-            chunked, both computing the same eps-band verdicts) followed by
-            the exact dedup/order pass (:func:`extract_frontier`).
+  extract   the frontier tail: a survivor mask (host predicate, on-device
+            chunked, or sharded over a mesh — all computing the same
+            eps-band verdicts) followed by the exact dedup/order pass
+            (:func:`extract_frontier`).
 
 Execution strategies live in a registry (:data:`STRATEGIES`,
 :func:`register_strategy`):
 
-  ``"jit"``    one spec, one kernel launch (the :mod:`repro_torch.core.
-               batched` path);
-  ``"vmap"``   a same-shape group of specs on one device in one launch, the
-               spec axis written out as the kernel's leading dimension
-               (:mod:`repro_torch.core.multispec`).
+  ``"jit"``          one spec, one kernel launch (the :mod:`repro_torch.core.
+                     batched` path);
+  ``"vmap"``         a same-shape group of specs on one device in one
+                     launch, the spec axis written out as the kernel's
+                     leading dimension (:mod:`repro_torch.core.multispec`);
+  ``"sharded-jit"``  the group's spec axis split into one contiguous lane
+                     slice per entry of a ``('spec',)`` mesh
+                     (:mod:`repro_torch.parallel.sharding`), each slice run
+                     on its entry's device (:mod:`repro_torch.core.
+                     shardspec`'s preferred mode);
+  ``"pmap"``         the JAX package's ``jax.pmap`` mode name, kept as a
+                     public mode: it runs the sharded-jit strategy (folding
+                     the lanes to ``(entries, lanes/entry)`` and taking row
+                     ``d`` is entry ``d``'s contiguous slice, so a separate
+                     path would give the same bits);
+  ``"multihost"``    the spec axis split over a ``('host', 'spec')`` mesh,
+                     one row per ``torch.distributed`` rank, registered by
+                     :mod:`repro_torch.core.multihost`.
 
-The JAX package's device-sharded strategies (``"sharded-jit"``, ``"pmap"``,
-``"multihost"``) belong to the port's sharded slice (ROADMAP queue 1,
-item 4); asking for them raises :class:`NotImplementedError`.
+A sharded strategy's lanes are padded to the entry count with copies of
+lane 0 and the padding is sliced off before the numpy tail, so every lane
+computes what the unsharded kernel computes, bit for bit.
 
 Execution is observable: :func:`add_execute_hook` registers a callback fired
 once per :func:`execute` call with the plan being run, and
@@ -46,20 +61,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import Mesh, spec_sweep_mesh
 from . import batched as B
 from . import subcircuits as sc
 from .batched import BatchedPPA, DesignLattice, SpecTables
 from .macro import MacroSpec
 from .pareto import pareto_indices
 from .tech import TechModel
-
-#: Where the device-sharded engine modes are queued.
-_SHARDED_QUEUE_ITEM = ("ROADMAP.md queue 1, item 4 (core/shardspec.py and "
-                       "core/multihost.py)")
-
-#: Engine modes of the JAX package that wait for the sharded slice.
-SHARDED_MODES = ("sharded-jit", "pmap", "multihost")
-
 
 # ---------------------------------------------------------------------------
 # Plan: spec grouping + operand packing
@@ -95,7 +103,7 @@ class PackedGroup:
 
 def pack_group(lattices: Sequence[DesignLattice],
                tables_list: Sequence[SpecTables]) -> PackedGroup:
-    """Pack one group's kernel operands (both strategies execute from this
+    """Pack one group's kernel operands (every strategy executes from this
     one packing, so the paths cannot drift).  Gather indices come from the
     tables' axis-flattening helpers (``csa_index`` / ``ofu_index``), so an
     optional axis's coordinates reach the kernel as wider gathers into the
@@ -152,26 +160,33 @@ def pad_lanes(arr: np.ndarray, pad: int) -> np.ndarray:
 
 @dataclass(frozen=True)
 class Placement:
-    """A resolved execution mode bound to its torch device."""
+    """A resolved execution mode bound to its torch device and, for a
+    sharded mode, to its mesh (each mesh entry is one shard; ``device`` is
+    then the first entry's)."""
 
     mode: str
     device: torch.device
+    mesh: Mesh | None = None
 
     @property
     def n_dev(self) -> int:
-        """Devices the placement spans: one, until the sharded engine."""
-        return 1
+        """Shards the placement spans: the mesh's entry count, else one."""
+        return 1 if self.mesh is None else int(self.mesh.devices.size)
 
 
 @dataclass(frozen=True)
 class Strategy:
     """One way to run a packed group: ``run(packed, placement)`` returns the
     kernel outputs as host numpy with a leading spec axis of exactly
-    ``len(packed)`` lanes."""
+    ``len(packed)`` lanes.  ``default_mesh(device)`` (sharded strategies)
+    builds the mesh :func:`place` binds when the caller passes none — each
+    sharded strategy owns its placement geometry."""
 
     name: str
     available: Callable[[], bool]
     run: Callable[[PackedGroup, Placement], dict]
+    sharded: bool = False
+    default_mesh: Callable[[object], Mesh] | None = None
 
 
 #: The strategy registry — a new way to execute is a
@@ -184,31 +199,71 @@ def register_strategy(strategy: Strategy) -> Strategy:
     return strategy
 
 
-def _sharded_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with {_SHARDED_QUEUE_ITEM}")
+#: Public mode names of the sharded surface (shardspec and the sharded
+#: Pareto mask): "jit" = one lane slice per mesh entry, "pmap" = the JAX
+#: package's name for the same split, "multihost" = the ('host', 'spec')
+#: mesh strategy.
+SHARDED_MODES = ("auto", "jit", "pmap", "multihost")
+
+#: Public sharded mode -> engine strategy name.
+_SHARDED_STRATEGY = {"jit": "sharded-jit", "pmap": "pmap",
+                     "multihost": "multihost"}
 
 
-def place(mode: str = "auto", device=None, *, sharded: bool = False
-          ) -> Placement:
-    """Resolve an execution mode and bind it to a device.
+def resolve_sharded_mode(mode: str = "auto") -> str:
+    """'auto' picks the sharded-jit strategy — the one dispatcher every
+    sharded surface (spec sweeps and Pareto extraction) resolves through.
+    "multihost" falls back to the single-host pick when the multi-host
+    strategy is unavailable on this runtime (no ``torch.distributed``)."""
+    if mode not in SHARDED_MODES:
+        raise ValueError(f"unknown shardspec mode: {mode!r}; "
+                         f"pick from {SHARDED_MODES}")
+    if mode == "auto" or (mode == "multihost"
+                          and not STRATEGIES["multihost"].available()):
+        return "jit"
+    return mode
 
-    ``mode`` is an engine strategy name or ``"auto"`` (the spec-stacked
-    ``"vmap"`` strategy).  ``device=None`` means the CUDA card and raises
-    where there is none (pass ``device="cpu"`` to run on the CPU)."""
-    if sharded:
-        raise _sharded_not_ported("sharded execution (sharded=True)")
-    if mode in SHARDED_MODES:
-        raise _sharded_not_ported(f"engine mode {mode!r}")
+
+def device_mesh(device=None) -> Mesh:
+    """The default ``('spec',)`` mesh of ``device``: every visible CUDA
+    card for the bare card (``None`` or ``"cuda"``; an error where there is
+    none), else one entry of the device named (``"cuda:1"``, ``"cpu"``)."""
+    dev = resolve_device(device)       # no card: the error names "cpu"
+    if device is None or str(device) == "cuda":
+        return spec_sweep_mesh()
+    return spec_sweep_mesh([dev])
+
+
+def place(mode: str = "auto", mesh: Mesh | None = None, *,
+          sharded: bool = False, device=None) -> Placement:
+    """Resolve an execution mode and bind it to devices.
+
+    ``mode`` is an engine strategy name or ``"auto"``; ``sharded=True`` makes
+    "auto" resolve across devices (:func:`resolve_sharded_mode`) instead of
+    to the single-device vmap strategy.  A sharded strategy runs on
+    ``mesh``, or without one on its own ``default_mesh`` of ``device``
+    (every visible card for the bare card, else the one device named).  An
+    unsharded strategy runs on ``device`` and takes no mesh.
+    ``device=None`` means the CUDA card and raises where there is none
+    (pass ``device="cpu"`` to run on the CPU)."""
     if mode == "auto":
-        mode = "vmap"
+        mode = (_SHARDED_STRATEGY[resolve_sharded_mode("auto")] if sharded
+                else "vmap")
     if mode not in STRATEGIES:
         raise ValueError(f"unknown engine mode: {mode!r}; "
                          f"pick from {sorted(STRATEGIES)}")
-    if not STRATEGIES[mode].available():
+    strategy = STRATEGIES[mode]
+    if not strategy.available():
         raise ValueError(f"engine mode {mode!r} is not available "
                          "on this runtime")
-    return Placement(mode=mode, device=resolve_device(device))
+    if not strategy.sharded:
+        if mesh is not None:
+            raise ValueError(f"engine mode {mode!r} runs on one device; a "
+                             "mesh places only the sharded modes")
+        return Placement(mode=mode, device=resolve_device(device))
+    if mesh is None:
+        mesh = strategy.default_mesh(device)
+    return Placement(mode=mode, device=mesh.devices.flat[0], mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -223,26 +278,44 @@ def _host(x):
     return x.cpu().numpy()
 
 
-def _launch(packed: PackedGroup, device: torch.device) -> dict:
-    """Copy one packed group to ``device``, run the kernel once over its
-    whole spec stack, and bring the outputs back to the host."""
-    tabs_s, consts_s, e_ofu_s, e_align_s = packed.operands
+def _merge(outs: list[dict], join: Callable[[list], np.ndarray]) -> dict:
+    """Per-shard host outputs -> one output tree, each leaf ``join``-ed
+    from the shards' leaves in shard order."""
+    return {k: (_merge([o[k] for o in outs], join) if isinstance(v, dict)
+                else join([o[k] for o in outs]))
+            for k, v in outs[0].items()}
+
+
+def _gather_index(packed: PackedGroup, device: torch.device) -> tuple:
+    """The group's shared gather tuple as int64 tensors on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(a), device=device)
+                 .to(torch.int64) for a in packed.idx)
+
+
+def _dispatch(idx: tuple, operands: tuple, device: torch.device) -> dict:
+    """Copy one lane stack's operands to ``device`` and launch the kernel
+    over it; the outputs stay on the device."""
+    tabs_s, consts_s, e_ofu_s, e_align_s = operands
 
     def f64(a):
         return torch.as_tensor(a, dtype=torch.float64, device=device)
 
-    idx = tuple(torch.as_tensor(np.asarray(a), device=device)
-                .to(torch.int64) for a in packed.idx)
-    out = B._eval_kernel(idx, tuple(f64(t) for t in tabs_s), f64(consts_s),
-                         f64(e_ofu_s), f64(e_align_s))
-    return _host(out)
+    return B._eval_kernel(idx, tuple(f64(t) for t in tabs_s), f64(consts_s),
+                          f64(e_ofu_s), f64(e_align_s))
+
+
+def _launch(packed: PackedGroup, device: torch.device) -> dict:
+    """Copy one packed group to ``device``, run the kernel once over its
+    whole spec stack, and bring the outputs back to the host."""
+    return _host(_dispatch(_gather_index(packed, device), packed.operands,
+                        device))
 
 
 def _run_jit(packed: PackedGroup, placement: Placement) -> dict:
     """Single-spec launch — the :mod:`repro_torch.core.batched` path."""
     if len(packed) != 1:
         raise ValueError("the 'jit' strategy runs exactly one spec; "
-                         "use 'vmap' for groups")
+                         "use 'vmap' or a sharded mode for groups")
     return _launch(packed, placement.device)
 
 
@@ -252,8 +325,58 @@ def _run_vmap(packed: PackedGroup, placement: Placement) -> dict:
     return _launch(packed, placement.device)
 
 
+def _padded_operands(packed: PackedGroup, n_dev: int):
+    """Pad the ragged spec count of a packed group up to the entry count."""
+    tabs_s, consts_s, e_ofu_s, e_align_s = packed.operands
+    pad = (-len(packed)) % n_dev
+    return (pad, tuple(pad_lanes(t, pad) for t in tabs_s),
+            pad_lanes(consts_s, pad), pad_lanes(e_ofu_s, pad),
+            pad_lanes(e_align_s, pad))
+
+
+def _map_entries(packed: PackedGroup, devices, shard_operands) -> list[dict]:
+    """The kernel once per mesh entry, on that entry's lane operands and
+    device.  Every entry's copies and launches are issued before any output
+    is copied back, so entries on distinct cards overlap; the shared gather
+    tuple goes to each distinct device once."""
+    index: dict[torch.device, tuple] = {}
+    outs = []
+    for dev, ops in zip(devices, shard_operands):
+        if dev not in index:
+            index[dev] = _gather_index(packed, dev)
+        outs.append(_dispatch(index[dev], ops, dev))
+    return [_host(o) for o in outs]
+
+
+def _lane_slice(operands: tuple, lo: int, hi: int) -> tuple:
+    tabs_s, consts_s, e_ofu_s, e_align_s = operands
+    return (tuple(t[lo:hi] for t in tabs_s), consts_s[lo:hi],
+            e_ofu_s[lo:hi], e_align_s[lo:hi])
+
+
+def _run_sharded_jit(packed: PackedGroup, placement: Placement) -> dict:
+    """The group's spec axis split into one contiguous lane slice per mesh
+    entry (row-major over the mesh), each run on its entry's device — the
+    kernel is elementwise per spec lane, so splitting the lane axis cannot
+    change per-lane float64 arithmetic."""
+    if placement.mesh is None:
+        raise ValueError(f"the {placement.mode!r} strategy needs a mesh "
+                         "(use engine.place to resolve one)")
+    n_dev = placement.n_dev
+    pad, *operands = _padded_operands(packed, n_dev)
+    per = (len(packed) + pad) // n_dev
+    outs = _map_entries(packed, placement.mesh.devices.flat,
+                        [_lane_slice(operands, i * per, (i + 1) * per)
+                         for i in range(n_dev)])
+    return _merge(outs, lambda a: np.concatenate(a)[:len(packed)])
+
+
 register_strategy(Strategy("jit", lambda: True, _run_jit))
 register_strategy(Strategy("vmap", lambda: True, _run_vmap))
+register_strategy(Strategy("sharded-jit", lambda: True, _run_sharded_jit,
+                           sharded=True, default_mesh=device_mesh))
+register_strategy(Strategy("pmap", lambda: True, _run_sharded_jit,
+                           sharded=True, default_mesh=device_mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -276,9 +399,10 @@ class ExecutionPlan:
 
 
 def plan_for(lattices: Sequence[DesignLattice],
-             tables: Sequence[SpecTables], mode: str = "auto", device=None,
-             sharded: bool = False,
-             placement: Placement | None = None) -> ExecutionPlan:
+             tables: Sequence[SpecTables], mode: str = "auto",
+             mesh: Mesh | None = None, sharded: bool = False,
+             placement: Placement | None = None, device=None
+             ) -> ExecutionPlan:
     """Group already-characterized specs into an :class:`ExecutionPlan`.
     An already-resolved ``placement`` skips the :func:`place` call (callers
     that time planning and placement as separate phases resolve it first)."""
@@ -286,7 +410,7 @@ def plan_for(lattices: Sequence[DesignLattice],
     for i, (lat, tab) in enumerate(zip(lattices, tables)):
         groups.setdefault(group_key(lat, tab), []).append(i)
     if placement is None:
-        placement = place(mode, device, sharded=sharded)
+        placement = place(mode, mesh, sharded=sharded, device=device)
     return ExecutionPlan(lattices=tuple(lattices), tables=tuple(tables),
                          groups=tuple(tuple(m) for m in groups.values()),
                          placement=placement)
@@ -294,8 +418,9 @@ def plan_for(lattices: Sequence[DesignLattice],
 
 def plan(specs: Sequence[MacroSpec], tech: TechModel,
          memcells: tuple[sc.MemCellKind, ...] | None = None,
-         mode: str = "auto", device=None, sharded: bool = False,
-         config: "B.LatticeConfig | None" = None) -> ExecutionPlan:
+         mode: str = "auto", mesh: Mesh | None = None,
+         sharded: bool = False, config: "B.LatticeConfig | None" = None,
+         device=None) -> ExecutionPlan:
     """Characterize every spec and bucket them into groups — the one
     grouping every execution path shares, so all paths group identically.
     ``config`` selects the lattice axis set (seed when None); ``memcells``
@@ -306,7 +431,7 @@ def plan(specs: Sequence[MacroSpec], tech: TechModel,
         config = config.with_memcells(memcells)
     # Resolve the placement first: a missing card fails before the tables
     # are characterized.
-    placement = place(mode, device, sharded=sharded)
+    placement = place(mode, mesh, sharded=sharded, device=device)
     lattices = [DesignLattice.enumerate(s, config=config) for s in specs]
     tables = [SpecTables(s, tech, config=config) for s in specs]
     return plan_for(lattices, tables, placement=placement)
@@ -379,13 +504,21 @@ def execute(p: ExecutionPlan
 def extract_frontier(objs, mask_fn: Callable[[np.ndarray], np.ndarray]
                      ) -> list[int]:
     """The numpy frontier tail every sweep shares: a survivor mask from
-    ``mask_fn`` (host :func:`repro_torch.core.pareto.nondominated_mask` or
-    the on-device chunked :func:`repro_torch.core.batched.pareto_mask` —
-    bit-identical by construction), then the exact dedup/order pass of
-    :func:`repro_torch.core.pareto.pareto_indices` on the survivors.
+    ``mask_fn`` (host :func:`repro_torch.core.pareto.nondominated_mask`,
+    the on-device chunked :func:`repro_torch.core.batched.pareto_mask`, or
+    the mesh-sharded :func:`repro_torch.core.pareto.
+    nondominated_mask_sharded` — bit-identical by construction), then the
+    exact dedup/order pass of :func:`repro_torch.core.pareto.
+    pareto_indices` on the survivors.
     Returns indices into ``objs`` sorted by objective tuple."""
     objs = np.asarray(objs, dtype=np.float64)
     mask = np.asarray(mask_fn(objs)).astype(bool)
     survivors = np.flatnonzero(mask)
     order = pareto_indices([tuple(o) for o in objs[mask]])
     return [int(survivors[i]) for i in order]
+
+
+# The multi-host strategy registers itself against this module's registry;
+# importing it last keeps the registration a plain `register_strategy` call
+# without a circular-import dance.
+from . import multihost as _multihost  # noqa: E402,F401

@@ -4,18 +4,19 @@ The MSO searcher emits a *set* of design points; the compiler returns those on
 the Pareto frontier of (power, area, latency) under the throughput constraint,
 "to be finally chosen based on defined PPA preferences or user selection".
 
-Extraction runs in two tiers, both computing the exact same eps-band verdicts
-(bit-identical masks, same output order):
+Extraction runs in three tiers, all computing the exact same eps-band
+verdicts (bit-identical masks, same output order):
 
   :func:`nondominated_mask`          host numpy, two-phase exact (block-local
                                      prefilter, then every local survivor is
                                      refined against *all* rows);
   :func:`repro_torch.core.batched.pareto_mask`
                                      the same chunked predicate on one torch
-                                     device.
-
-The device-sharded map-reduce of the JAX package waits for the port's sharded
-slice; :func:`nondominated_mask_auto` is the host mask until then.
+                                     device;
+  :func:`nondominated_mask_sharded`  map-reduce over the entries of a device
+                                     mesh — per-shard local frontier, gather
+                                     survivors, refinement against all rows
+                                     (lattice-scale frontiers).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from __future__ import annotations
 from typing import Callable, Iterable, Sequence, TypeVar
 
 import numpy as np
+import torch
+
+from ..parallel.sharding import spec_sweep_mesh
 
 T = TypeVar("T")
 
@@ -118,10 +122,120 @@ def pareto_chunk_size(n_points: int, n_objectives: int = 3,
     return int(min(max(chunk, 64), max(n_points, 64)))
 
 
+# ---------------------------------------------------------------------------
+# Mesh-sharded extraction (lattice-scale frontiers)
+# ---------------------------------------------------------------------------
+
+#: Below this point count the host pass wins on dispatch overhead; the auto
+#: dispatcher only reaches for devices at or above it.
+SHARDED_EXTRACT_MIN_POINTS = 8192
+
+
+def nondominated_mask_sharded(objs, eps: float = PARETO_EPS,
+                              chunk: int | None = None,
+                              mode: str = "auto", mesh=None) -> np.ndarray:
+    """Mesh-sharded :func:`nondominated_mask`: the map-reduce dominance pass
+    for lattice-scale frontiers.
+
+    The rows are split into one contiguous shard per mesh entry (padded
+    with ``+inf``) and the verdict is computed in two exact phases, both
+    running the shared :func:`chunk_dominated` predicate as torch ops on
+    each entry's device:
+
+      1. *per-shard local prefilter* — each shard walks its rows in blocks
+         of ``chunk`` (default ``max(64, min(1024, rows per shard))``),
+         testing each block against itself; a row dominated inside its own
+         block is dominated, full stop (the witness is a real row).  Each
+         shard is copied to its device once and its blocks are cut there;
+         every ``mode`` (validated by the engine's
+         :func:`repro_torch.core.engine.resolve_sharded_mode`) runs this
+         one pass over every entry of ``mesh``;
+      2. *cross-shard refinement* — the local survivors, in strides of one
+         ``+inf``-padded block per entry, are re-tested against **all**
+         rows, replicated on each entry's device.  Eps-band dominance is
+         not transitive, so testing survivors only against other survivors
+         would not be exact; testing against every row is.
+
+    Every entry's blocks are issued before any verdict is copied back, so
+    entries on distinct cards overlap.  An ``+inf`` row never dominates a
+    finite one, and pad verdicts are dropped before they are read.  The
+    result is bit-identical to the host :func:`nondominated_mask` — same
+    :data:`PARETO_EPS` band, same verdict per row, same output order — on
+    one entry and on N; only the wall-clock changes.
+
+    ``mesh`` is the device mesh to shard over — pass the mesh a sweep
+    evaluated on so extraction uses the same entries; default is every
+    visible CUDA card (:func:`repro_torch.parallel.sharding.
+    spec_sweep_mesh`, an error where there is none)."""
+    objs = _as_matrix(objs)
+    n, k = objs.shape
+    if n == 0:
+        return np.ones(0, dtype=bool)
+    from . import engine as E          # lazy: engine imports this module
+    E.resolve_sharded_mode(mode)       # validate; every mode runs one pass
+    if mesh is None:
+        mesh = spec_sweep_mesh()
+    devices = list(mesh.devices.flat)
+    n_dev = len(devices)
+    m = -(-n // n_dev)                               # rows per shard
+    c = int(chunk) if chunk else max(64, min(1024, m))
+    m_p = -(-m // c) * c                             # whole blocks
+    pad_rows = m_p * n_dev - n
+    padded = (np.concatenate([objs, np.full((pad_rows, k), np.inf)])
+              if pad_rows else objs)
+    shards = padded.reshape(n_dev, m_p, k)
+
+    def put(a, dev):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    parts: list[list] = [[] for _ in devices]
+    for d, dev in enumerate(devices):
+        shard = put(shards[d], dev)
+        for s in range(0, m_p, c):
+            blk = shard[s:s + c]
+            parts[d].append(chunk_dominated(blk, blk, eps))
+    dominated = np.concatenate([torch.cat(p).cpu().numpy()
+                                for p in parts])[:n]
+
+    survivors = np.flatnonzero(~dominated)
+    rows = {}                                        # replicated per device
+    for dev in devices:
+        if dev not in rows:
+            rows[dev] = put(objs, dev)
+    # survivor blocks sized so each entry's comparison masks fit its slice
+    # of the memory budget
+    cr = max(64, pareto_chunk_size(
+        n, k, DEFAULT_PARETO_BUDGET_BYTES // n_dev))
+    stride = n_dev * cr
+    for start in range(0, survivors.size, stride):
+        idx = survivors[start:start + stride]
+        blk = objs[idx]
+        if blk.shape[0] < stride:                    # whole blocks
+            blk = np.concatenate(
+                [blk, np.full((stride - blk.shape[0], k), np.inf)])
+        blk = blk.reshape(n_dev, cr, k)
+        verdicts = [chunk_dominated(rows[dev], put(blk[d], dev), eps)
+                    for d, dev in enumerate(devices)]
+        verdict = np.concatenate([v.cpu().numpy() for v in verdicts])
+        dominated[idx] = verdict[:idx.size]
+    return ~dominated
+
+
 def nondominated_mask_auto(objs, eps: float = PARETO_EPS) -> np.ndarray:
-    """The frontier mask for pools of any size.  In the JAX package this
-    switches to a device-sharded map-reduce on multi-device hosts; the port's
-    sharded slice has not landed, so this is the host mask (same bits)."""
+    """Host mask below the sharding payoff point (or with fewer than two
+    CUDA cards), the mesh-sharded map-reduce over every card above it.
+    Both produce the same bits, so callers may switch freely on scale."""
+    objs = _as_matrix(objs)
+    if objs.shape[0] >= SHARDED_EXTRACT_MIN_POINTS:
+        # Only the device probe is guarded: a failure *inside* the sharded
+        # pass (device OOM, a sharding regression) must surface, not
+        # silently degrade to the slow host walk.
+        try:
+            n_dev = torch.cuda.device_count()
+        except RuntimeError:
+            n_dev = 1
+        if n_dev > 1:
+            return nondominated_mask_sharded(objs, eps)
     return nondominated_mask(objs, eps)
 
 
@@ -136,8 +250,9 @@ def pareto_indices(objs: Sequence[Sequence[float]],
     Dominance testing delegates to the vectorized :func:`nondominated_mask`
     (the per-pair Python walk was O(N^2) and hung at lattice scale); callers
     at lattice scale may pass the device mask
-    (:func:`repro_torch.core.batched.pareto_mask`) — every mask
-    implementation returns the same bits.
+    (:func:`repro_torch.core.batched.pareto_mask`),
+    ``mask_fn=nondominated_mask_auto`` or the sharded mask directly — every
+    mask implementation returns the same bits.
     The documented output order is preserved exactly: near-duplicates (all
     coordinates within :data:`PARETO_EPS`) keep their first occurrence in
     input order, and the surviving set is sorted by objective tuple."""

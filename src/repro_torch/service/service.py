@@ -14,8 +14,9 @@ answers them from three tiers, cheapest first —
   3. **one fused engine pass** — all remaining unique misses go through
      ``engine.plan_for`` (which micro-batches them into vmap groups by
      ``engine.group_key``) and ONE ``engine.execute`` call per execution
-     mode on the service's device (vmap; the sharded modes wait for the
-     port's sharded engine, see :data:`SERVICE_MODES`).
+     mode: vmap on the service's device for small batches, sharded-jit /
+     pmap / multihost over a device mesh once a batch is big enough (see
+     :data:`SERVICE_MODES`).
 
 So N singleton requests cost one fused pass, not N — and a repeated request
 costs zero engine executions (observable through
@@ -48,7 +49,6 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..core import batched as B
 from ..core import engine as E
@@ -71,11 +71,10 @@ _NULL_CTX = contextlib.nullcontext()
 
 #: Request-side execution modes: "auto" picks vmap for small fused batches
 #: and the sharded pick once a batch is big enough to pay for device
-#: placement; "sharded" forces the sharded pick; the public sharded names
-#: select one strategy.  The port's engine has no sharded strategy yet, so
-#: every sharded pick raises :class:`NotImplementedError` naming where it is
-#: queued (:func:`repro_torch.core.engine._sharded_not_ported`), never a
-#: silent vmap in its place.
+#: placement; "sharded" forces the sharded auto pick; the public sharded
+#: names select one strategy with the engine's fallback semantics
+#: ("multihost" degrades to the single-host path without
+#: ``torch.distributed``).
 SERVICE_MODES = ("auto", "vmap", "sharded", "jit", "pmap", "multihost")
 
 #: "auto" shards a fused miss batch only when it stacks at least this many
@@ -86,27 +85,29 @@ SHARD_MIN_SPECS_PER_DEVICE = 2
 
 
 def resolve_service_mode(mode: str = "auto", n_specs: int | None = None,
-                         device=None) -> str:
-    """Public service mode -> engine strategy name.  ``n_specs`` (the fused
-    batch size) lets "auto" apply the sharding payoff threshold against the
-    number of devices of ``device``'s kind (the CUDA cards visible, or 1
-    for the CPU; ``None``: the card); without it "auto" stays on the
-    single-device vmap strategy.  A sharded pick raises
-    :class:`NotImplementedError`: the port's sharded engine is not there
-    yet."""
+                         device=None, mesh=None) -> str:
+    """Public service mode -> engine strategy name, through the engine's
+    sharded dispatcher (:func:`repro_torch.core.engine.
+    resolve_sharded_mode`).  ``n_specs`` (the fused batch size) lets "auto"
+    apply the sharding payoff threshold against the entries of ``mesh``,
+    or without one those of ``device``'s default mesh
+    (:func:`repro_torch.core.engine.device_mesh`: every visible card for
+    the bare card, ``None`` or ``"cuda"``; one entry for a named device);
+    without ``n_specs`` "auto" stays on the single-device vmap strategy."""
     if mode not in SERVICE_MODES:
         raise ValueError(f"unknown service mode: {mode!r}; "
                          f"pick from {SERVICE_MODES}")
     if mode == "auto":
         big = False
         if n_specs is not None:
-            n_dev = (torch.cuda.device_count()
-                     if resolve_device(device).type == "cuda" else 1)
+            n_dev = int((mesh or E.device_mesh(device)).devices.size)
             big = n_dev > 1 and n_specs >= SHARD_MIN_SPECS_PER_DEVICE * n_dev
         mode = "sharded" if big else "vmap"
     if mode == "vmap":
         return "vmap"
-    raise E._sharded_not_ported(f"service mode {mode!r}")
+    if mode == "sharded":
+        mode = "auto"
+    return E._SHARDED_STRATEGY[E.resolve_sharded_mode(mode)]
 
 
 class ServiceStats(StatsView):
@@ -163,7 +164,11 @@ class SynthesisService:
     ``device`` is where every fused pass runs: ``None`` means the CUDA card
     and raises where there is none (pass ``device="cpu"`` to serve on the
     CPU).  It is resolved once, when the service is built, so a scheduler
-    thread never reads the per-thread current CUDA device.
+    thread never reads the per-thread current CUDA device.  A sharded pass
+    runs on ``mesh`` (:mod:`repro_torch.parallel.sharding`; a
+    ``('host', 'spec')`` one for "multihost"), by default on its strategy's
+    mesh of ``device``: every visible card for the bare card (``None`` or
+    ``"cuda"``), else the one device named (``"cuda:1"``, ``"cpu"``).
     """
 
     tech: TechModel | None = None
@@ -175,9 +180,14 @@ class SynthesisService:
     stats: ServiceStats = field(default_factory=ServiceStats)
     claim_wait_s: float = 30.0
     device: object = None
+    mesh: object = None
 
     def __post_init__(self):
+        # The bare card spreads a sharded pass over every visible card; a
+        # named device keeps it on that device.
+        bare = self.device is None or str(self.device) == "cuda"
         self.device = resolve_device(self.device)
+        self._mesh_device = None if bare else self.device
         if self.tech is None:
             self.tech = calibrated_tech_for_reference()
         resolve_service_mode(self.mode)      # validate eagerly
@@ -439,9 +449,7 @@ class SynthesisService:
                 tables = [B.SpecTables(r.spec, tech, config=cfg)
                           for r, (tech, _, _, cfg) in zip(requests, eff)]
             with tracer.span("engine.place") as pspan:
-                placement = E.place(
-                    resolve_service_mode(mode, len(requests), self.device),
-                    device=self.device)
+                placement = self._place(mode, len(requests))
                 pspan.set_tag("mode", placement.mode)
                 pspan.set_tag("n_dev", placement.n_dev)
             plan = E.plan_for(lattices, tables, placement=placement)
@@ -451,6 +459,15 @@ class SynthesisService:
                 with tracer.span("engine.extract", tags={"slot": slot}):
                     res = B._alg1_replay(lat, tab, T, eff[slot][1])
                 on_result(slot, res)
+
+    def _place(self, mode: str, n_specs: int) -> E.Placement:
+        """A fused pass's placement: vmap on the service's device, or a
+        sharded strategy on ``mesh`` or its default mesh (class doc)."""
+        name = resolve_service_mode(mode, n_specs, self._mesh_device,
+                                    self.mesh)
+        if E.STRATEGIES[name].sharded:
+            return E.place(name, self.mesh, device=self._mesh_device)
+        return E.place(name, device=self.device)
 
     # -- exhaustive sweeps: slice caching + incremental re-synthesis ---------
 

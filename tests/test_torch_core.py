@@ -39,6 +39,7 @@ from repro_torch.core import batched as B
 from repro_torch.core import engine as E
 from repro_torch.core import pareto as P
 from repro_torch.core import subcircuits as sc
+from repro_torch.parallel import host_spec_mesh, spec_sweep_mesh
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = "cpu"
@@ -329,15 +330,35 @@ class TestMultiSpec:
         assert 0 < len(extracted) <= len(pool)
 
 
+#: The engine's sharded strategies, one per public sharded mode.
+SHARDED_STRATEGIES = ("sharded-jit", "pmap", "multihost")
+
+
 class TestEngine:
-    @pytest.mark.parametrize("mode", list(E.SHARDED_MODES))
+    @pytest.mark.parametrize("mode", SHARDED_STRATEGIES)
     def test_sharded_modes_are_queued(self, mode):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            E.place(mode, device=CPU)
+        """A sharded strategy resolves and binds a mesh: its default mesh
+        of the device (one CPU entry), or the caller's."""
+        assert set(E._SHARDED_STRATEGY.values()) == set(SHARDED_STRATEGIES)
+        p = E.place(mode, device=CPU)
+        assert p.mode == mode and p.n_dev == 1
+        assert list(p.mesh.devices.flat) == [torch.device("cpu")]
+        assert p.mesh.axis_names == (("host", "spec") if mode == "multihost"
+                                     else ("spec",))
+        mesh = (host_spec_mesh([CPU] * 8, n_hosts=2) if mode == "multihost"
+                else spec_sweep_mesh([CPU] * 8))
+        p = E.place(mode, mesh, device=CPU)
+        assert p.mesh is mesh and p.n_dev == 8
+        assert p.device == torch.device("cpu")
 
     def test_sharded_flag_is_queued(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            E.place(device=CPU, sharded=True)
+        """``sharded=True`` resolves "auto" across devices: the sharded-jit
+        strategy on the device's mesh, never the single-device vmap."""
+        p = E.place(device=CPU, sharded=True)
+        assert p.mode == "sharded-jit"
+        assert list(p.mesh.devices.flat) == [torch.device("cpu")]
+        with pytest.raises(ValueError, match="mesh"):
+            E.place("vmap", spec_sweep_mesh([CPU]), device=CPU)
 
     def test_unknown_mode(self):
         with pytest.raises(ValueError):
@@ -405,6 +426,11 @@ def _entry_points(tech):
         "design_space_sweep_many": lambda: C.design_space_sweep_many(
             [spec], tech),
         "engine.place": lambda: E.place(),
+        "engine.place(sharded)": lambda: E.place(sharded=True),
+        "mso_search_many_sharded": lambda: C.mso_search_many_sharded(
+            [spec], tech=tech),
+        "design_space_sweep_many_sharded":
+            lambda: C.design_space_sweep_many_sharded([spec], tech),
         "pareto_mask": lambda: B.pareto_mask(np.ones((4, 3))),
         "mac_operands_from_numpy": lambda: mac_operands_from_numpy(
             np.zeros((2, 2), np.int8), np.zeros((2, 2), np.int8),
@@ -460,6 +486,9 @@ class TestImportHygiene:
                     "src/repro_torch/core/gatesim.py",
                     "src/repro_torch/core/netlist.py",
                     "src/repro_torch/core/layout.py",
+                    "src/repro_torch/core/shardspec.py",
+                    "src/repro_torch/core/multihost.py",
+                    "src/repro_torch/parallel/sharding.py",
                     "src/repro_torch/service/service.py",
                     "src/repro_torch/service/frontend.py",
                     "src/repro_torch/serve/select.py",

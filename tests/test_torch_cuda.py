@@ -202,6 +202,29 @@ def test_compiler_device_path_equals_cpu(cuda_device):
     assert gpu.frontier_indices() == cpu.frontier_indices()
 
 
+@pytest.mark.parametrize("mode", ["jit", "pmap", "multihost"])
+def test_sharded_engine_on_the_card_equals_cpu(cuda_device, mode):
+    """The sharded engine over four entries of the card (a ragged 5-spec
+    request) and its sweep's frontier through A3, bit for bit against the
+    unsharded CPU pass."""
+    from repro_torch.core.shardspec import (design_space_sweep_many_sharded,
+                                            mso_search_many_sharded,
+                                            spec_variants)
+    from repro_torch.parallel import host_spec_mesh, spec_sweep_mesh
+    tech = C.calibrated_tech_for_reference()
+    entries = [f"cuda:{cuda_device.index or 0}"] * 4
+    mesh = (host_spec_mesh(entries) if mode == "multihost"
+            else spec_sweep_mesh(entries))
+    specs = spec_variants(5, seed=3)
+    got = mso_search_many_sharded(specs, None, tech, mesh=mesh, mode=mode)
+    ref = C.mso_search_many(specs, None, tech, device="cpu")
+    assert [repr(r) for r in got] == [repr(r) for r in ref]
+    (sweep,) = design_space_sweep_many_sharded(specs[:1], tech, mesh=mesh,
+                                               mode=mode)
+    (cpu,) = C.design_space_sweep_many(specs[:1], tech, device="cpu")
+    assert sweep.frontier_indices() == cpu.frontier_indices()
+
+
 # csa_tree: one row, ragged columns, the macro's 64 rows, past a 128-row
 # tile (the tall register kernel), the whole-rows limit, and past it
 CSA_SHAPES = [(1, 5), (2, 33), (7, 100), (64, 1000), (130, 257),

@@ -27,10 +27,11 @@ on ``device="cpu"``: ``tests/test_service.py`` (``TestKeys``,
 ``TestBackpressure``, ``TestStreaming``, ``TestThreadedFrontend``,
 ``TestServeConfig``, ``TestSingletonThreadSafety``) and the service and
 frontend span checks of ``tests/test_obs.py``.  The multi-process drills
-start fewer workers than the reference's (each imports torch).
-``TestMultiHostStrategy`` and ``TestAsyncEightDevices`` wait for the port's
-sharded engine (ROADMAP.md queue 1, item 4): every sharded service mode
-raises ``NotImplementedError`` naming it, which is tested here instead.
+start fewer workers than the reference's (each imports torch).  The
+sharded service modes (``TestMultiHostStrategy``, ``TestAsyncEightDevices``
+and the multihost span census) are restated in
+``tests/test_torch_shardspec.py``; here every sharded mode is served and
+equals vmap.
 """
 
 import dataclasses
@@ -59,7 +60,9 @@ from repro_torch.core import subcircuits as sc
 from repro_torch.core.axes import LatticeConfig, seed_config
 from repro_torch.core.macro import MacroSpec
 from repro_torch.core.multispec import frontier_union, mso_search_many
+from repro_torch.core.shardspec import spec_variants
 from repro_torch.obs import configure, tracer
+from repro_torch.parallel import spec_sweep_mesh
 from repro_torch.serve.config import (SERVE_CONFIG_SCHEMA, ServeConfig,
                                       load_serve_config, parse_pref,
                                       save_serve_config,
@@ -87,35 +90,6 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = "cpu"
 RES = 3
 TECH = C.calibrated_tech_for_reference()
-
-#: The message every sharded service mode raises with.
-SHARDED_QUEUE = "queue 1, item 4"
-
-
-# The JAX package's ``core.shardspec.spec_variants`` (the port's sharded
-# slice has not brought it yet): n seeded posture variants of a base spec.
-_VARIANT_F_MAC = (250e6, 400e6, 600e6, 800e6, 1.0e9, 1.1e9)
-_VARIANT_VDD = (0.7, 0.8, 0.9, 1.0, 1.1, 1.2)
-_VARIANT_MCR = (1, 2, 4)
-
-
-def spec_variants(n: int, seed: int = 0) -> list[MacroSpec]:
-    base = C.scenario_specs()["vision"]
-    rng = np.random.default_rng(seed)
-    out, seen = [], set()
-    while len(out) < n:
-        f_mac = float(rng.choice(_VARIANT_F_MAC))
-        f_wup = float(min(f_mac, rng.choice(_VARIANT_F_MAC)))
-        vdd = float(rng.choice(_VARIANT_VDD))
-        mcr = int(rng.choice(_VARIANT_MCR))
-        key = (f_mac, f_wup, vdd, mcr)
-        if key in seen:
-            continue
-        seen.add(key)
-        out.append(dataclasses.replace(base, f_mac_hz=f_mac,
-                                       f_wupdate_hz=f_wup, vdd=vdd, mcr=mcr))
-    return out
-
 
 def service(**kw) -> SynthesisService:
     kw.setdefault("tech", TECH)
@@ -416,32 +390,39 @@ class TestServiceModes:
 
     @pytest.mark.parametrize("mode", SHARDED_SERVICE_MODES)
     def test_sharded_mode_raises_naming_the_queue(self, mode):
-        with pytest.raises(NotImplementedError, match=SHARDED_QUEUE):
-            resolve_service_mode(mode)
-        with pytest.raises(NotImplementedError, match=SHARDED_QUEUE):
-            SynthesisService(device=CPU, mode=mode)
+        """Each sharded service mode resolves to its engine strategy, and a
+        service in that mode builds."""
+        want = {"sharded": "sharded-jit", "jit": "sharded-jit",
+                "pmap": "pmap", "multihost": "multihost"}[mode]
+        assert resolve_service_mode(mode) == want
+        assert SynthesisService(device=CPU, mode=mode).mode == mode
 
     @pytest.mark.parametrize("mode", SHARDED_SERVICE_MODES)
     def test_sharded_request_mode_raises_never_vmap(self, mode,
                                                     execute_counter):
+        """A request in a sharded mode is served in one fused pass on the
+        sharded strategy, and equals the vmap pass."""
+        specs = spec_variants(3, seed=3)
         svc = service()
-        with pytest.raises(NotImplementedError, match=SHARDED_QUEUE):
-            svc.serve([SynthesisRequest(spec=spec_variants(1, 3)[0],
-                                        mode=mode)])
-        assert execute_counter == []
-        assert svc.stats.fused_passes == 0
+        got = svc.serve([SynthesisRequest(spec=s, mode=mode) for s in specs])
+        assert [p.placement.mode for p in execute_counter] == [
+            resolve_service_mode(mode)]
+        assert svc.stats.fused_passes == 1
+        for resp, r in zip(got, oracle(specs)):
+            assert_search_identical(resp.result, r)
 
     def test_sharded_request_through_frontend_sheds_typed(self):
+        """The frontend answers a sharded request unshedded, equal to the
+        vmap pass."""
+        spec = spec_variants(1, seed=5)[0]
         front = ServiceFrontend(service(), start=False)
         try:
-            t = front.submit(SynthesisRequest(spec=spec_variants(1, 5)[0],
-                                              mode="pmap"))
+            t = front.submit(SynthesisRequest(spec=spec, mode="pmap"))
             front.run_pending()
             resp = t.result(timeout=0)
-            assert isinstance(resp, SheddedResponse)
-            assert resp.reason == "internal_error"
-            assert "NotImplementedError" in resp.detail
-            assert SHARDED_QUEUE in resp.detail
+            assert isinstance(resp, SynthesisResponse)
+            assert front.stats.shedded == 0
+            assert_search_identical(resp.result, oracle([spec])[0])
         finally:
             front.close()
 
@@ -451,14 +432,20 @@ class TestServiceModes:
         assert resolve_service_mode("vmap", 1000, CPU) == "vmap"
 
     def test_auto_across_cards_raises_not_vmap(self, monkeypatch):
-        """A batch big enough to shard over 4 cards asks for the sharded
-        engine, which is not there yet: an error, never a silent vmap."""
+        """A batch big enough to pay for 4 cards is sharded: 8 specs (2
+        per card) resolve to "sharded-jit", 7 stay on vmap; an explicit
+        8-entry mesh counts its entries the same way."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-        monkeypatch.setattr(service_mod, "resolve_device",
-                            lambda device=None: torch.device("cuda", 0))
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
         assert resolve_service_mode("auto", 7, "cuda") == "vmap"
-        with pytest.raises(NotImplementedError, match=SHARDED_QUEUE):
-            resolve_service_mode("auto", 8, "cuda")
+        assert resolve_service_mode("auto", 8, "cuda") == "sharded-jit"
+        assert resolve_service_mode("auto", 8) == "sharded-jit"
+        # a named card is one entry: no batch pays for sharding there
+        assert resolve_service_mode("auto", 1000, "cuda:1") == "vmap"
+        mesh = spec_sweep_mesh([CPU] * 8)
+        assert resolve_service_mode("auto", 15, CPU, mesh) == "vmap"
+        assert resolve_service_mode("auto", 16, CPU, mesh) == "sharded-jit"
 
     def test_unknown_mode_is_value_error(self):
         with pytest.raises(ValueError, match="unknown service mode"):
@@ -494,8 +481,9 @@ class TestServiceModes:
         engine.add_execute_hook(hook)
         try:
             with ServiceFrontend(svc, window=0.01) as front:
-                front.serve([SynthesisRequest(spec=spec_variants(1, 9)[0])],
-                            timeout=300)
+                front.serve(
+                    [SynthesisRequest(spec=spec_variants(1, seed=9)[0])],
+                    timeout=300)
         finally:
             engine.remove_execute_hook(hook)
         assert seen == [torch.device("cpu")]
@@ -532,7 +520,7 @@ class TestKeys:
     def test_service_key_is_device_free(self, monkeypatch):
         """The service's address of a request names no device: a service
         on another device gives the same key."""
-        req = SynthesisRequest(spec=spec_variants(1, 2)[0])
+        req = SynthesisRequest(spec=spec_variants(1, seed=2)[0])
         key = service().key_for(req)
         monkeypatch.setattr(service_mod, "resolve_device",
                             lambda device=None: torch.device("cuda", 0))
@@ -1806,14 +1794,14 @@ class TestServiceSpans:
         assert place.tags["mode"] == "vmap" and place.tags["n_dev"] >= 1
 
     def test_untraced_serve_records_nothing(self, traced):
-        service().serve([SynthesisRequest(spec=spec_variants(1, 24)[0])])
+        service().serve([SynthesisRequest(spec=spec_variants(1, seed=24)[0])])
         spans = tracer.drain()
         assert not _by_name(spans, "cache.mem")
         assert len(_by_name(spans, "engine.pass")) == 1
 
     def test_tracing_off_records_nothing_at_all(self):
         assert not tracer.enabled
-        service().serve([SynthesisRequest(spec=spec_variants(1, 25)[0])])
+        service().serve([SynthesisRequest(spec=spec_variants(1, seed=25)[0])])
         assert tracer.spans() == []
 
     def test_six_n_plus_four_census(self, traced):
