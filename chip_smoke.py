@@ -154,7 +154,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
                models' products are ``torch.matmul`` and ``torch.einsum``
                of fake-quantised operands, as the JAX models' are
                ``jnp.matmul`` and ``jnp.einsum``;
- 11. report    one ``{"kernels": [...]}`` line, then as the last line
+ 11. train     the port's training path on the card (``repro_torch.train``,
+               ``optim``, ``data``, ``ckpt``, the models' backward under
+               remat): (a) for each of the ten smoke configs, one
+               ``make_train_step`` step of 8 x 16 tokens on the card
+               against the same step on the CPU from the same parameters
+               (drawn on the CPU, seed 0) and batch, loss, grad norm and
+               every parameter, ``m`` and ``v`` within TRAIN_LOSS /
+               TRAIN_LEAF, or, where a fake-quant code or an MoE expert
+               choice of the forward passes flipped (recorded, printed),
+               within the TRAIN_FLIP_* tolerances; (b) ``python -m
+               repro_torch.launch.train --arch llama3.2-3b --steps 6
+               --batch 4 --seq 512 --microbatches 2`` at full width (28
+               layers, 3.21e9 parameters in bf16, 2,048 tokens per step)
+               as a subprocess, its printed losses finite and falling, then
+               the same run in this process: every loss and grad norm
+               finite, the last loss below the first, step 0's loss the
+               launcher's; ms per step, tokens/s, peak device memory, one
+               traced step's device busy share and the step's bound
+               printed beside the card's name and power limit; (c) the
+               restart drill (``examples/torch_fault_tolerance_drill.py``,
+               failures at steps 7 and 13) on the card under
+               ``torch.use_deterministic_algorithms``: the final parameters
+               and moments equal the failure-free run's.  No hand-written
+               kernel runs here either: the reference's training path calls
+               none;
+ 12. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
@@ -1926,17 +1951,18 @@ F32_TOL_FRAC = 1e-4
 EXPERT_TIE = 1e-6
 
 
-def _launch_serve(args: list[str]) -> list[str]:
-    """``python -m repro_torch.launch.serve`` on the card in a subprocess;
-    its output lines."""
+def _launch(launcher: str, args: list[str]) -> list[str]:
+    """``python -m repro_torch.launch.<launcher>`` on the card in a
+    subprocess; its output lines."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"]
-                          + args, capture_output=True, text=True,
-                          timeout=600, cwd=ROOT, env=env)
-    check(proc.returncode == 0,
-          f"launch.serve failed: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    proc = subprocess.run([sys.executable, "-m",
+                           f"repro_torch.launch.{launcher}"] + args,
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    check(proc.returncode == 0, f"launch.{launcher} failed: "
+          f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
     return proc.stdout.splitlines()
 
 
@@ -1959,17 +1985,27 @@ def _same_logits(got, want, tol_frac: float, what: str) -> None:
           f"model: {what}: the logits differ")
 
 
+def _in_forward() -> bool:
+    """Whether autograd is not running a backward pass: the calls a
+    rematerialised block repeats inside the backward pass are left out of
+    the recordings below."""
+    import torch
+
+    return torch._C._current_graph_task_id() == -1
+
+
 @contextlib.contextmanager
 def _recording_codes(codes: list):
-    """A context in which every ``quantize_int`` call appends its int8
-    codes (on the host) to ``codes``."""
+    """A context in which every ``quantize_int`` call of a forward pass
+    appends its int8 codes (on the host) to ``codes``."""
     import repro_torch.quant.quantizers as Q
 
     orig = Q.quantize_int
 
     def rec(*a, **k):
         q, s = orig(*a, **k)
-        codes.append(q.cpu())
+        if _in_forward():
+            codes.append(q.cpu())
         return q, s
 
     Q.quantize_int = rec
@@ -1995,15 +2031,16 @@ def _first_flip(got: list, want: list):
 
 @contextlib.contextmanager
 def _recording_experts(choices: list):
-    """A context in which every MoE dispatch appends (gates, the experts
-    chosen), on the host, to ``choices``."""
+    """A context in which every MoE dispatch of a forward pass appends
+    (gates, the experts chosen), on the host, to ``choices``."""
     import repro_torch.models.moe as moe
 
     orig = moe._top_k
 
     def rec(gates, k):
         v, i = orig(gates, k)
-        choices.append((gates.cpu(), i.cpu()))
+        if _in_forward():
+            choices.append((gates.detach().cpu(), i.cpu()))
         return v, i
 
     moe._top_k = rec
@@ -2266,7 +2303,7 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     sel = None
     for launch in (("cold", "warm") if main else ("warm",)):
         t0 = time.perf_counter()
-        lines = _launch_serve(args)
+        lines = _launch("serve", args)
         wall = time.perf_counter() - t0
         for line in lines:
             log(f"  {line}")
@@ -2321,6 +2358,261 @@ def phase_model(pick: str, artifact: Path) -> None:
                      pick if arch == "qwen3-4b" else None)
 
 
+# ---------------------------------------------------------------------------
+# 11. train
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("qwen3-4b", "llama3.2-3b", "phi3-mini-3.8b",
+               "mistral-large-123b", "internvl2-1b", "whisper-tiny",
+               "granite-moe-1b-a400m", "granite-moe-3b-a800m", "rwkv6-7b",
+               "zamba2-1.2b")
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ, TRAIN_SMOKE_LR = 8, 16, 1e-3
+# card against CPU, one train step at a smoke config (the tolerances of
+# tests/test_torch_train.py): without a code or expert flip, loss, ce,
+# aux and grad norm within TRAIN_LOSS relative, each moment within
+# TRAIN_LEAF of its largest magnitude, each parameter within TRAIN_LEAF of
+# its leaf's largest magnitude plus TRAIN_LR_FRAC learning rates, or two
+# where the CPU's clipped gradient is below TRAIN_SMALL_GRAD of its leaf's
+# largest (AdamW's first step g / (|g| + eps) turns a gradient near eps or
+# under the summation noise into a step anywhere in (-1, 1)); with a flip,
+# within TRAIN_FLIP_LOSS and TRAIN_FLIP_MOMENT, and each parameter within
+# TRAIN_FLIP_PARAM of its leaf's largest magnitude plus TRAIN_LR_FRAC
+# learning rates, or two where the gradient is below TRAIN_FLIP_MOMENT of
+# the leaf's largest (the flip moves gradients by that much)
+TRAIN_LOSS, TRAIN_LEAF, TRAIN_LR_FRAC = 1e-5, 1e-4, 0.1
+TRAIN_SMALL_GRAD = 1e-3
+TRAIN_FLIP_LOSS, TRAIN_FLIP_PARAM, TRAIN_FLIP_MOMENT = 1e-3, 0.01, 0.05
+# full width: llama3.2-3b, 6 steps of 4 x 512 tokens in 2 microbatches
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = (
+    "llama3.2-3b", 6, 4, 512, 2)
+BF16_FLOPS_PER_S = 989e12
+
+
+def _train_step_on(arch: str, device: str, model_state: dict, batch):
+    """One ``make_train_step`` step of ``arch``'s smoke config on
+    ``device`` from ``model_state``; returns (metrics as floats, the
+    parameters and moments on the host, int8 codes, expert choices)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import get_model, model_class
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.train import make_train_step
+
+    cfg = smoke_config(arch)
+    api = get_model(cfg)
+    model = model_class(cfg)(cfg, device=device)
+    model.load_state_dict(model_state)
+    opt = adamw_init(dict(model.named_parameters()))
+    codes, choices = [], []
+    with _recording_codes(codes), _recording_experts(choices):
+        model, opt, m = make_train_step(api, constant_lr(TRAIN_SMOKE_LR))(
+            model, opt, batch)
+    host = {"p": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "m": {n: t.cpu() for n, t in opt["m"].items()},
+            "v": {n: t.cpu() for n, t in opt["v"].items()}}
+    return {k: float(v) for k, v in m.items()}, host, codes, choices
+
+
+def _train_smoke(arch: str) -> None:
+    """(a): one train step of ``arch``'s smoke config on the card against
+    the CPU from the same parameters and batch."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import get_model
+
+    cfg = smoke_config(arch)
+    fr = cfg.frontend
+    batch = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SMOKE_SEQ,
+        global_batch=TRAIN_SMOKE_BATCH,
+        frontend_tokens=fr.n_tokens if fr else 0,
+        frontend_dim=fr.d_frontend if fr else 0)).batch(0)
+    state = get_model(cfg).init_params(torch.Generator().manual_seed(SEED),
+                                       device="cpu").state_dict()
+    card, got, gcodes, gchoices = _train_step_on(arch, "cuda", state, batch)
+    cpu, want, wcodes, wchoices = _train_step_on(arch, "cpu", state, batch)
+    flip = _first_flip(gcodes, wcodes) or _first_expert_flip(gchoices,
+                                                             wchoices)
+    worst = {}
+    for kind in ("p", "m", "v"):
+        for name, w in want[kind].items():
+            diff = (got[kind][name] - w).abs()
+            scale = w.abs().max().item()
+            leaf, small = ((TRAIN_FLIP_PARAM, TRAIN_FLIP_MOMENT)
+                           if flip is not None else
+                           (TRAIN_LEAF, TRAIN_SMALL_GRAD))
+            if kind == "p":
+                g = (want["v"][name] / (1 - 0.95)).sqrt()
+                bound = leaf * scale + TRAIN_SMOKE_LR * torch.where(
+                    g < small * g.max(), 2.0, TRAIN_LR_FRAC)
+            else:
+                bound = (TRAIN_FLIP_MOMENT if flip is not None
+                         else TRAIN_LEAF) * scale
+            check(bool((diff <= bound).all()), f"train: {arch}: {kind} "
+                  f"{name} on the card differs from the CPU by "
+                  f"{diff.max().item():.3g}")
+            worst[kind] = max(worst.get(kind, 0.0),
+                              diff.max().item() / max(scale, 1e-30))
+    tol = TRAIN_LOSS if flip is None else TRAIN_FLIP_LOSS
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        rel = abs(card[key] - cpu[key]) / max(abs(cpu[key]), 1e-30)
+        check(rel <= tol, f"train: {arch}: {key} {card[key]!r} on the card, "
+              f"{cpu[key]!r} on the CPU")
+    check(abs(card["aux"] - cpu["aux"]) <= tol * max(abs(cpu["aux"]), 1.0),
+          f"train: {arch}: aux {card['aux']!r} / {cpu['aux']!r}")
+    log(f"train: {arch} smoke, one step of {TRAIN_SMOKE_BATCH}x"
+        f"{TRAIN_SMOKE_SEQ} tokens, card against CPU: loss {card['loss']!r} "
+        f"/ {cpu['loss']!r}, grad norm {card['grad_norm']!r} / "
+        f"{cpu['grad_norm']!r}; flip {flip} ({len(wcodes)} quantizer calls, "
+        f"{len(wchoices)} MoE dispatches); worst |diff| / max: params "
+        f"{worst['p']:.3g}, m {worst['m']:.3g}, v {worst['v']:.3g}")
+
+
+def _train_full_width(card: str, work: Path) -> None:
+    """(b): llama3.2-3b at full width through the launcher (gated on its
+    printed losses), then the same run in this process, timed and traced."""
+    import math
+    import re
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig, linear_warmup_cosine
+    from repro_torch.train import init_train_state, make_train_step
+
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+            str(TRAIN_MICRO), "--save-every", "1000"]
+    t0 = time.perf_counter()
+    lines = _launch("train", argv + ["--ckpt-dir", str(work / "ckpt")])
+    wall = time.perf_counter() - t0
+    for line in lines:
+        log(f"  {line}")
+    printed = {int(m[1]): (float(m[2]), float(m[3])) for m in
+               (re.match(r"step +(\d+) loss=(\S+) gnorm=(\S+)", ln)
+                for ln in lines) if m}
+    check(sorted(printed) == [0, TRAIN_STEPS - 1]
+          and all(math.isfinite(x) for v in printed.values() for x in v)
+          and printed[TRAIN_STEPS - 1][0] < printed[0][0]
+          and lines[-1].startswith(f"trained {TRAIN_STEPS} steps"),
+          f"train: the launcher's losses: {printed}")
+    log(f"train: launch.train {TRAIN_ARCH} full width, {TRAIN_STEPS} steps: "
+        f"{wall:.3f} s with start-up")
+
+    cfg = get_config(TRAIN_ARCH)
+    api = get_model(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, opt = init_train_state(api, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(len(model.blocks) == cfg.n_layers,
+          f"train: {len(model.blocks)} layers")
+    corpus = SyntheticCorpus(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+    lr = linear_warmup_cosine(3e-4, warmup=min(20, TRAIN_STEPS // 5),
+                              total_steps=TRAIN_STEPS)
+    step = make_train_step(api, lr, AdamWConfig(), microbatches=TRAIN_MICRO)
+    losses, norms, times = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, corpus.batch(i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses + norms)
+          and losses[-1] < losses[0],
+          f"train: full width: losses {losses}, grad norms {norms}")
+    check(f"{losses[0]:.4f}" == f"{printed[0][0]:.4f}",
+          f"train: step 0's loss {losses[0]!r} in process, "
+          f"{printed[0][0]!r} from the launcher")
+    wall1, busy, kernels = _device_profile(
+        lambda: step(model, opt, corpus.batch(TRAIN_STEPS)))
+    ms = [t * 1e3 for t in times[1:]]
+    mean_ms = sum(ms) / len(ms)
+    flops6 = 6 * n_params * tokens
+    adam_bytes = 22 * n_params
+    bound6 = flops6 / BF16_FLOPS_PER_S * 1e3
+    bound8 = 8 * n_params * tokens / BF16_FLOPS_PER_S * 1e3
+    adam_ms = adam_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"train: {TRAIN_ARCH} full width on {card}: {cfg.n_layers} layers, "
+        f"{n_params} parameters ({cfg.param_dtype}), drawn in {t_init:.3f} "
+        f"s; {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} = {tokens} "
+        f"tokens in {TRAIN_MICRO} microbatches")
+    log(f"train: losses {losses}; grad norms {norms}")
+    log(f"train: ms per step, steps 1-{TRAIN_STEPS - 1}: "
+        f"{[round(x, 3) for x in ms]}; mean {mean_ms:.3f} ms, "
+        f"{tokens / (mean_ms * 1e-3):.1f} tokens/s (step 0 "
+        f"{times[0] * 1e3:.3f} ms)")
+    log(f"train: peak device memory {peak} bytes ({held} held before "
+        f"init); one traced step {wall1 * 1e3:.3f} ms, device busy "
+        f"{busy * 1e3:.3f} ms in {kernels} kernels: {busy / wall1:.1%} of "
+        f"the traced step, {busy * 1e3 / mean_ms:.1%} of the mean untraced "
+        f"step")
+    log(f"train: bound per step max(6 N T / 989 TFLOP/s = {bound6:.3f} ms "
+        f"[8 N T with remat's extra forward: {bound8:.3f} ms], AdamW's "
+        f"{adam_bytes} state bytes / 3.35 TB/s = {adam_ms:.3f} ms) = "
+        f"{max(bound6, adam_ms):.3f} ms; the mean step is "
+        f"{mean_ms / max(bound6, adam_ms):.1f}x it")
+    del model, opt, m, step
+    torch.cuda.empty_cache()
+
+
+def _train_drill() -> None:
+    """(c): the restart drill on the card, deterministic, as a
+    subprocess."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" /
+                             "torch_fault_tolerance_drill.py"),
+         "--deterministic"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        log(f"  {line}")
+    check(proc.returncode == 0 and lines[-1:] == [
+        "exactly-once restart semantics: PASS"],
+          f"train: the restart drill failed: {proc.stdout[-2000:]}"
+          f"{proc.stderr[-3000:]}")
+    log(f"train: restart drill on the card (failures at steps 7 and 13, "
+        f"torch.use_deterministic_algorithms): the final parameters and "
+        f"moments equal the failure-free run's; "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def phase_train() -> None:
+    """The training path on the card (module doc, phase 11)."""
+    import shutil
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"train: {card}")
+    work = ROOT / "build" / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    for arch in TRAIN_ARCHS:
+        _train_smoke(arch)
+    log(f"train: ten smoke configs, card against CPU: "
+        f"{time.perf_counter() - t0:.3f} s")
+    _train_full_width(card, work)
+    _train_drill()
+
+
 def main() -> int:
     import torch
 
@@ -2359,11 +2651,14 @@ def main() -> int:
     t9 = time.perf_counter()
     phase_model(pick, artifact)
     t10 = time.perf_counter()
+    phase_train()
+    t11 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"shard {t2b - t2:.3f} s, mac {t3 - t2b:.3f} s, csa {t4 - t3:.3f} s, "
         f"ssm {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
         f"{t7 - t6:.3f} s, serving {t8 - t7:.3f} s, service "
-        f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s")
+        f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s, train "
+        f"{t11 - t10:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

@@ -9,6 +9,15 @@ tree (:func:`model_params_from_numpy`) and its decode state
 (:func:`decode_state_to_numpy`, :func:`decode_state_from_numpy`); a
 bfloat16 array may come as ``ml_dtypes.bfloat16`` (what ``np.asarray`` of a
 JAX bfloat16 array gives) and is read bit for bit.
+
+A training state crosses as the reference's ``(params, opt_state)`` tuple
+of plain trees (:func:`train_state_to_numpy`,
+:func:`train_state_from_numpy`): the blocks' leaves stacked on the layer
+axis, the optimizer's ``m`` / ``v`` trees shaped like the parameters and
+its ``count`` an int32 scalar.  This is also the checkpoint's layout
+(:mod:`repro_torch.ckpt`).  numpy has no bfloat16 of its own, so a
+bfloat16 leaf the port hands out is a CPU ``torch.bfloat16`` tensor; every
+other leaf is a numpy array.
 """
 
 from __future__ import annotations
@@ -94,11 +103,13 @@ def ssm_operands_from_numpy(a: np.ndarray, b: np.ndarray, h0: np.ndarray,
                                  device=dev) for x in (a, b, h0))
 
 
-def _tensor_from_numpy(x: np.ndarray, dtype: torch.dtype,
+def _tensor_from_numpy(x, dtype: torch.dtype,
                        device: torch.device) -> torch.Tensor:
     """``x`` as a ``dtype`` tensor on ``device``: an ``ml_dtypes``
-    bfloat16 array bit for bit, anything else through ``torch.as_tensor``
-    and a cast."""
+    bfloat16 array bit for bit, a tensor as it is, anything else through
+    ``torch.as_tensor``; then a cast."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
     x = np.ascontiguousarray(x)
     if x.dtype.name == "bfloat16":
         t = torch.from_numpy(x.view(np.uint16).copy()).view(torch.bfloat16)
@@ -115,6 +126,17 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{key}", value
 
 
+# the reference's trees whose leaves carry a leading layer axis
+STACKED = ("blocks", "enc_blocks", "mamba")
+
+
+def _dtype_name(x) -> str:
+    """``x``'s dtype as numpy names it (``float32``, ``bfloat16``)."""
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).removeprefix("torch.")
+    return x.dtype.name
+
+
 def model_params_from_numpy(cfg, tree: Mapping[str, Any], device=None):
     """The port's model for ``cfg`` on ``device`` (``None``: the CUDA card)
     holding the JAX package's plain parameter tree ``tree``
@@ -124,7 +146,8 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device=None):
     The reference stacks each block's parameters on a leading ``layer``
     axis (``stack_init``); they are unstacked into ``blocks.<i>`` /
     ``enc_blocks.<i>`` / ``mamba.<i>`` (zamba2's one ``shared_attn`` block
-    is not stacked).  A leaf that is a linear's weight (``attn.wq``) lands
+    is not stacked).  A leaf may also be a tensor (a bfloat16 leaf of
+    :func:`train_state_to_numpy` or of a checkpoint).  A leaf that is a linear's weight (``attn.wq``) lands
     in that module's ``w``; any other leaf (an MoE router or expert tensor,
     RWKV6's ``mu_*``, ``w0``, ``u``, ``wA`` / ``wB``, Mamba2's ``conv_w``,
     ``A_log``, ``dt_bias``, ``D``) in the parameter of its name.  Every
@@ -144,7 +167,7 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device=None):
         if tuple(value.shape) != tuple(p.shape):
             raise ValueError(f"{target}: shape {tuple(value.shape)}, the "
                              f"model's {tuple(p.shape)}")
-        dtype = value.dtype.name
+        dtype = _dtype_name(value)
         if dtype != str(p.dtype).removeprefix("torch."):
             raise ValueError(f"{target}: dtype {dtype}, the model's "
                              f"{p.dtype}")
@@ -153,9 +176,10 @@ def model_params_from_numpy(cfg, tree: Mapping[str, Any], device=None):
         filled.add(target)
 
     for name, value in _flatten(tree):
-        value = np.asarray(value)
+        if not isinstance(value, torch.Tensor):
+            value = np.asarray(value)
         top, _, rest = name.partition(".")
-        if top in ("blocks", "enc_blocks", "mamba"):
+        if top in STACKED:
             for i in range(value.shape[0]):
                 put(f"{top}.{i}.{rest}", value[i])
         else:
@@ -197,3 +221,127 @@ def decode_state_from_numpy(cfg, tree: Mapping[str, np.ndarray],
     return {key: _tensor_from_numpy(np.asarray(value), layout[key].dtype,
                                     dev)
             for key, value in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# training state: the reference's (params, opt_state) trees
+# ---------------------------------------------------------------------------
+
+
+def reference_leaf_rank(name: str, ndim: int) -> int:
+    """The rank of the reference's leaf that holds the port's parameter
+    ``name`` of rank ``ndim``: one more under a stacked tree
+    (``blocks.<i>``, ``enc_blocks.<i>``, ``mamba.<i>``), where the
+    reference's leaf carries the layer axis.  AdamW decays by this rank."""
+    top, _, rest = name.partition(".")
+    return ndim + int(top in STACKED and rest.split(".")[0].isdigit())
+
+
+def _reference_names(model) -> dict[str, tuple[str, int | None]]:
+    """Each parameter's (reference leaf name, layer index or None): a
+    :class:`~repro_torch.models.layers.DcimLinear`'s ``w`` is the leaf of
+    the linear's own name, a stacked block's index leaves the name."""
+    from .models.layers import DcimLinear
+
+    linears = {name for name, m in model.named_modules()
+               if isinstance(m, DcimLinear)}
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        ref = owner if leaf == "w" and owner in linears else name
+        top, _, rest = ref.partition(".")
+        index, _, tail = rest.partition(".")
+        if top in STACKED and index.isdigit():
+            out[name] = (f"{top}.{tail}", int(index))
+        else:
+            out[name] = (ref, None)
+    return out
+
+
+def _nest(flat: Mapping[str, Any]) -> dict:
+    """A dotted-name mapping as nested dicts."""
+    tree: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+def _host(t: torch.Tensor):
+    """A tensor on the host: numpy, or a CPU tensor for bfloat16."""
+    t = t.detach().cpu()
+    return t.clone() if t.dtype == torch.bfloat16 else t.numpy().copy()
+
+
+def _reference_tree(model, values: Mapping[str, torch.Tensor]) -> dict:
+    """``values`` (by the model's parameter names) as the reference's
+    plain tree on the host, each stacked leaf's layers in order."""
+    groups: dict[str, list] = {}
+    for name, (ref, index) in _reference_names(model).items():
+        t = values[name].detach().cpu()
+        if index is None:
+            groups[ref] = _host(t)
+        else:
+            groups.setdefault(ref, []).append((index, t))
+    for ref, layers in groups.items():
+        if isinstance(layers, list):
+            stacked = torch.stack([t for _, t in sorted(layers,
+                                                        key=lambda x: x[0])])
+            groups[ref] = _host(stacked)
+    return _nest(groups)
+
+
+def train_state_to_numpy(cfg, model, opt_state: Mapping[str, Any]
+                         ) -> tuple[dict, dict]:
+    """The port's model and AdamW state as the reference's ``(params,
+    opt_state)`` plain trees on the host (module doc): the parameters in
+    their dtypes, ``m`` and ``v`` float32, ``count`` an int32 scalar."""
+    params = dict(model.named_parameters())
+    check = set(params)
+    for key in ("m", "v"):
+        if set(opt_state[key]) != check:
+            raise ValueError(f"{cfg.name}: opt_state[{key!r}] does not "
+                             "hold the model's parameters")
+    return (_reference_tree(model, params),
+            {"count": np.asarray(opt_state["count"].item(), np.int32),
+             "m": _reference_tree(model, opt_state["m"]),
+             "v": _reference_tree(model, opt_state["v"])})
+
+
+def train_state_layout(cfg) -> tuple[dict, dict]:
+    """The structure of :func:`train_state_to_numpy`'s trees for ``cfg``,
+    each leaf a placeholder 0 (a checkpoint's ``tree_like``); the model is
+    built on the meta device, so nothing is allocated."""
+    from .models import model_class
+
+    model = model_class(cfg)(cfg, device="meta")
+    refs = {ref: 0 for ref, _ in _reference_names(model).values()}
+    return _nest(refs), {"count": 0, "m": _nest(refs), "v": _nest(refs)}
+
+
+def train_state_from_numpy(cfg, tree, device=None):
+    """The reference's ``(params, opt_state)`` trees (the JAX package's
+    leaves as numpy, :func:`train_state_to_numpy`'s, or a checkpoint's) as
+    the port's model and AdamW state on ``device`` (``None``: the CUDA
+    card)."""
+    params, opt = tree
+    dev = resolve_device(device)
+    model = model_params_from_numpy(cfg, params, device=dev)
+
+    def leaf(t: Mapping[str, Any], ref: str):
+        for key in ref.split("."):
+            t = t[key]
+        return t
+
+    state = {"m": {}, "v": {}}
+    for name, (ref, index) in _reference_names(model).items():
+        for key in ("m", "v"):
+            value = leaf(opt[key], ref)
+            value = value if index is None else value[index]
+            state[key][name] = _tensor_from_numpy(value, torch.float32, dev)
+    state["count"] = torch.tensor(int(opt["count"]), dtype=torch.int32,
+                                  device=dev)
+    return model, state

@@ -33,7 +33,7 @@ roofline (``kernel_fraction`` derate).
 ``--mesh`` keeps the reference's rule: the shape shrinks to the visible
 device count.  A mesh that still spans more than one device raises
 ``NotImplementedError``: sharded serving waits for ROADMAP.md queue 1,
-item 8.
+item 8c.
 """
 
 from __future__ import annotations
@@ -76,8 +76,8 @@ def make_host_mesh(shape: tuple[int, ...] = (1, 1),
     if math.prod(shape) > 1:
         raise NotImplementedError(
             f"mesh {dict(zip(axes, shape))} spans {math.prod(shape)} "
-            "devices; sharded serving is not ported yet (ROADMAP.md queue "
-            "1, item 8)")
+            "devices; a mesh over more than one device is not ported yet "
+            "(ROADMAP.md queue 1, item 8c)")
     return dict(zip(axes, shape))
 
 

@@ -20,7 +20,11 @@ explicit ``torch.Generator``, so the numbers differ from ``jax.random``'s;
 tests carry the reference's parameters across instead
 (:func:`repro_torch.convert.model_params_from_numpy`).  The reference's
 logical-axis trees and activation sharding constraints are left out: on one
-device they do nothing, and sharding waits for ROADMAP.md queue 1, item 8.
+device they do nothing, and sharding waits for ROADMAP.md queue 1, item 8c.
+
+Training rematerialises as the reference does (:func:`remat`, its
+``jax.checkpoint``): each block, and each chunk of the chunked scan, keeps
+only its inputs for the backward pass and runs again there.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..quant import fake_quant
@@ -50,6 +55,18 @@ def init_param(t: torch.Tensor, generator: torch.Generator,
                     device=t.device) * s
     with torch.no_grad():
         t.copy_(v.to(t.dtype))
+
+
+def remat(fn, *args, enabled: bool):
+    """``fn(*args)``; with ``enabled`` and gradients on, its activations are
+    dropped and recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).  The
+    recomputation runs the same ops on the same inputs, fake-quant
+    included, so it gives the same bits."""
+    if enabled and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def _empty(shape, dtype, device) -> nn.Parameter:

@@ -166,12 +166,16 @@ class MoeTransformer(Transformer):
 
     def forward_train(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """batch: {'tokens': (B,S)} -> (logits (B,S,vocab), the blocks'
-        mean load-balance loss).  Forward only."""
+        mean load-balance loss, which carries gradient into the routers
+        through the gates' mean).  Each block is rematerialised when
+        training with ``cfg.remat``."""
         x = self.embed(batch["tokens"], self._cd)
         b, s, _ = x.shape
         pos = torch.arange(s, device=x.device).expand(b, s)
         auxes = []
         for blk in self.blocks:
-            x, aux = blk.forward_aux(x, positions=pos)
+            x, aux = L.remat(lambda h, blk=blk: blk.forward_aux(h,
+                                                                positions=pos),
+                             x, enabled=self.cfg.remat)
             auxes.append(aux)
         return self._logits(self.ln_f(x)), torch.stack(auxes).mean()

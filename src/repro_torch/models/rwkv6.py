@@ -149,11 +149,12 @@ class RWKV6(L.ZooModel):
 
     def forward_train(self, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """batch: {'tokens': (B,S)} -> (logits (B,S,vocab), aux 0).
-        Forward only."""
+        """batch: {'tokens': (B,S)} -> (logits (B,S,vocab), aux 0).  Each
+        block is rematerialised when training with ``cfg.remat``."""
         x = self.embed(batch["tokens"], self._cd)
         for blk in self.blocks:
-            x, _ = blk(x)
+            x = L.remat(lambda h, blk=blk: blk(h)[0], x,
+                        enabled=self.cfg.remat)
         return self._logits(self.ln_f(x)), self._no_aux()
 
     def init_decode_state(self, batch: int, cache_len: int = 0) -> dict:

@@ -11,8 +11,10 @@ Semantics per head with state S in R^{dk x dv}:
 Chunked evaluation (GLA-style): within a chunk of C tokens the decay factors
 telescope into per-token exponentials of the cumulative log-decay, giving an
 exact O(C^2) intra-chunk term plus an O(dk x dv) inter-chunk state.  The
-reference carries that state by ``lax.scan`` over the chunks; here a Python
-loop over the chunks runs the same einsums in the same order.
+reference carries that state by ``lax.scan`` over the chunks, the chunk
+body under ``jax.checkpoint`` when ``remat``; here a Python loop over the
+chunks runs the same einsums in the same order, each chunk under
+:func:`~repro_torch.models.layers.remat` when training.
 
 The factors ``exp(-cumsum(log_w))`` grow with the chunk's summed decay, as
 in the reference: at RWKV6's initial decay (log w = -exp(-1) per channel) a
@@ -25,6 +27,8 @@ Decode (T=1) uses the plain recurrence.
 from __future__ import annotations
 
 import torch
+
+from .layers import remat as _remat
 
 
 def _to_chunks(x: torch.Tensor, nc: int, c: int) -> torch.Tensor:
@@ -42,8 +46,9 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     u: (H, dk) bonus (rwkv) — applied to the diagonal (current token) term.
     inclusive: diagonal uses decayed state *including* k_t v_t (mamba2).
-    s0: (B, H, dk, dv) initial state.  ``remat`` (the reference's
-    rematerialisation of the chunk body for training) has no effect here.
+    s0: (B, H, dk, dv) initial state.  ``remat``: with gradients on, each
+    chunk's body is recomputed in the backward pass (backward memory
+    O(T/C x state)).
     Returns (y (B, T, H, dv) in v's dtype, final_state (B, H, dk, dv) f32).
     """
     b, t, h, dk = q.shape
@@ -81,10 +86,8 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      0 if inclusive else -1)
     zero = torch.zeros((), dtype=f32, device=q.device)
 
-    ys = []
-    for i in range(nc):
-        qd, kd, kr, wt = q_dec[i], k_dec[i], k_rem[i], wtot[i]
-        vv = vc[i].to(f32)
+    def chunk_step(s, qd, kd, kr, wt, vraw, qraw, kraw):
+        vv = vraw.to(f32)
         # inter-chunk: y_i += (q_i ⊙ E_i) S
         y_inter = torch.einsum("bhcd,bhde->bhce", qd, s)
         # intra-chunk: scores_ij = q~_i · k~_j  (masked causal)
@@ -93,12 +96,18 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y_intra = torch.einsum("bhck,bhke->bhce", scores, vv)
         y = y_inter + y_intra
         if u is not None and not inclusive:
-            bonus = torch.einsum("bhcd,hd,bhcd->bhc", qc[i].to(f32),
-                                 u.to(f32), kc[i].to(f32))
+            bonus = torch.einsum("bhcd,hd,bhcd->bhc", qraw.to(f32),
+                                 u.to(f32), kraw.to(f32))
             y = y + bonus[..., None] * vv
         # state: S' = Diag(exp(wtot)) S + k_rem^T v
-        s = torch.exp(wt[..., 0, :])[..., None] * s \
+        s_new = torch.exp(wt[..., 0, :])[..., None] * s \
             + torch.einsum("bhck,bhce->bhke", kr, vv)
+        return s_new, y
+
+    ys = []
+    for i in range(nc):
+        s, y = _remat(chunk_step, s, q_dec[i], k_dec[i], k_rem[i], wtot[i],
+                      vc[i], qc[i], kc[i], enabled=remat)
         ys.append(y)
     # (NC, B, H, C, dv) -> (B, T, H, dv)
     y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, tp, h, dv)[:, :t]

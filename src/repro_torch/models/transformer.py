@@ -4,8 +4,9 @@ enc-dec (whisper: stub frame embeddings + encoder + cross-attending decoder)
 (the port of the JAX package's ``repro/models/transformer.py``).
 
 The reference stacks each layer's parameters on a ``layer`` axis and runs
-them under ``lax.scan`` (with optional remat, which only training needs);
-here the blocks are an ``nn.ModuleList`` run in a loop, and
+them under ``lax.scan``, each block under ``jax.checkpoint`` when
+``cfg.remat``; here the blocks are an ``nn.ModuleList`` run in a loop, each
+under :func:`~repro_torch.models.layers.remat` when training, and
 :func:`repro_torch.convert.model_params_from_numpy` unstacks the layer axis.
 The decode state keeps the reference's layout — ``k`` / ``v`` stacked as
 ``(L, B, cache_len, n_kv_heads, hd)`` in the compute dtype, ``pos`` an int32
@@ -90,7 +91,9 @@ class Transformer(L.ZooModel):
         b, f, _ = x.shape
         pos = torch.arange(f, device=x.device).expand(b, f)
         for blk in self.enc_blocks:
-            x = blk(x, positions=pos, causal=False)
+            x = L.remat(lambda h, blk=blk: blk(h, positions=pos,
+                                               causal=False),
+                        x, enabled=self.cfg.remat)
         return self.enc_ln_f(x)
 
     def _cross_kv(self, blk, enc_out):
@@ -109,8 +112,9 @@ class Transformer(L.ZooModel):
                       ) -> tuple[torch.Tensor, torch.Tensor]:
         """batch: {'tokens': (B,S)} (+ 'frontend': (B,F,d_frontend) for
         vlm/audio).  Returns (logits (B, S, vocab), aux 0): the vlm prefix
-        is prepended to the sequence and sliced off the logits.  Forward
-        only; training waits for ROADMAP.md queue 1, item 8."""
+        is prepended to the sequence and sliced off the logits.  With
+        gradients on and ``cfg.remat``, each block (with its cross-attention
+        K/V) is rematerialised, as the reference's ``scan_layers``."""
         cd = self._cd
         x = self.embed(batch["tokens"], cd)
         enc = None
@@ -123,9 +127,14 @@ class Transformer(L.ZooModel):
             enc = self._encode(batch["frontend"])
         b, s, _ = x.shape
         pos = torch.arange(s, device=x.device).expand(b, s)
+
+        def run(h, e, blk):
+            ekv = None if e is None else self._cross_kv(blk, e)
+            return blk(h, positions=pos, enc_kv=ekv)
+
         for blk in self.blocks:
-            ekv = None if enc is None else self._cross_kv(blk, enc)
-            x = blk(x, positions=pos, enc_kv=ekv)
+            x = L.remat(lambda h, e, blk=blk: run(h, e, blk), x, enc,
+                        enabled=self.cfg.remat)
         logits = self._logits(self.ln_f(x))
         if prefix:
             logits = logits[:, prefix:]

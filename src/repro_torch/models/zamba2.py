@@ -127,15 +127,17 @@ class Zamba2(L.ZooModel):
 
     def forward_train(self, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-        """batch: {'tokens': (B,S)} -> (logits (B,S,vocab), aux 0).
-        Forward only."""
+        """batch: {'tokens': (B,S)} -> (logits (B,S,vocab), aux 0).  Each
+        Mamba2 block (not the shared attention block) is rematerialised
+        when training with ``cfg.remat``, as in the reference."""
         x = self.embed(batch["tokens"], self._cd)
         b, t, _ = x.shape
         pos = torch.arange(t, device=x.device).expand(b, t)
         lo = 0
         for seg in _segments(self.cfg):
             for blk in self.mamba[lo:lo + seg]:
-                x, _ = blk(x)
+                x = L.remat(lambda h, blk=blk: blk(h)[0], x,
+                            enabled=self.cfg.remat)
             lo += seg
             # shared attention block after every segment (weights shared)
             x = self.shared_attn(x, positions=pos)

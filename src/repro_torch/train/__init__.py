@@ -1,0 +1,6 @@
+"""Training of the port's models on one device (the JAX package's
+``repro.train``)."""
+
+from .step import AUX_COEF, init_train_state, make_loss_fn, make_train_step
+
+__all__ = ["AUX_COEF", "init_train_state", "make_loss_fn", "make_train_step"]

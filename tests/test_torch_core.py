@@ -459,7 +459,8 @@ PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
                     (REPO / "src" / "repro_torch").rglob("*.py")) \
     + ["chip_smoke.py", "scripts/torch_profile_kernels.py",
        "scripts/torch_warm_cache.py", "examples/torch_quickstart.py",
-       "examples/torch_serve_decode.py"]
+       "examples/torch_serve_decode.py", "examples/torch_train_lm_dcim.py",
+       "examples/torch_fault_tolerance_drill.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -506,7 +507,16 @@ class TestImportHygiene:
                     "src/repro_torch/configs/rwkv6_7b.py",
                     "src/repro_torch/serve/step.py",
                     "src/repro_torch/launch/serve.py",
-                    "examples/torch_serve_decode.py"):
+                    "examples/torch_serve_decode.py",
+                    "src/repro_torch/optim/adamw.py",
+                    "src/repro_torch/optim/schedules.py",
+                    "src/repro_torch/data/pipeline.py",
+                    "src/repro_torch/train/step.py",
+                    "src/repro_torch/ckpt/manager.py",
+                    "src/repro_torch/ckpt/failures.py",
+                    "src/repro_torch/launch/train.py",
+                    "examples/torch_train_lm_dcim.py",
+                    "examples/torch_fault_tolerance_drill.py"):
             assert rel in PORT_FILES
 
     @pytest.mark.parametrize("rel", PORT_FILES)

@@ -744,3 +744,77 @@ def test_launcher_serves_on_the_card(cuda_device, capsys):
     out = capsys.readouterr().out
     assert f"on {torch.cuda.get_device_name(0)}" in out
     assert "device=cuda:0" in out
+
+
+@pytest.mark.parametrize("arch", MODEL_ARCHS)
+def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device, arch,
+                                                     monkeypatch):
+    """One ``make_train_step`` step of 8 x 16 tokens, float32, TF32 off,
+    from the same parameters on the card and on the CPU, under the
+    tolerances of ``tests/test_torch_train.py``: loss, ce, aux and grad
+    norm within 1e-5 relative, ``m`` / ``v`` within 1e-4 of each leaf's
+    largest magnitude and parameters within that plus 0.1 x the learning
+    rate (2 x where the CPU's clipped gradient is below 1e-3 of its leaf's
+    largest: AdamW's first step may turn its sign); where a fake-quant code or an expert choice of the forward passes
+    flipped (one code step, a near-tie within 1e-6), within 1e-3 relative,
+    5% for the moments, and for the parameters 1% plus 0.1 x the learning
+    rate (2 x where the gradient is below 5% of its leaf's largest)."""
+    import repro_torch.quant.quantizers as TQ
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.train import make_train_step
+    from torch_expert_choices import expert_flip, record_expert_choices
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, api, cpu, card, _, _ = _smoke_models(arch, cuda_device)
+    fr = cfg.frontend
+    batch = SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=8,
+        frontend_tokens=fr.n_tokens if fr else 0,
+        frontend_dim=fr.d_frontend if fr else 0)).batch(0)
+    codes = {"cuda": [], "cpu": []}
+    quantize = TQ.quantize_int
+
+    def recording(*a, **k):
+        q, s = quantize(*a, **k)
+        if torch._C._current_graph_task_id() == -1:     # not a recompute
+            codes[q.device.type].append(q.cpu())
+        return q, s
+
+    monkeypatch.setattr(TQ, "quantize_int", recording)
+    choices = record_expert_choices(monkeypatch)
+    out = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        opt = adamw_init(dict(model.named_parameters()))
+        _, opt, m = make_train_step(api, constant_lr(1e-3))(model, opt, batch)
+        out[dev] = ({k: float(v) for k, v in m.items()},
+                    {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    {k: {n: t.cpu() for n, t in opt[k].items()}
+                     for k in ("m", "v")})
+    assert len(codes["cuda"]) == len(codes["cpu"])
+    # the first quantizer call that differs must differ by one code step
+    steps = [(a.int() - b.int()).abs().max().item()
+             for a, b in zip(codes["cuda"], codes["cpu"])]
+    first = next((d for d in steps if d), 0)
+    assert first <= 1
+    # the dispatches come in the same order on both devices (each repeated
+    # by remat's recomputation alike)
+    flip = (first > 0
+            or expert_flip(choices["cuda"], choices["cpu"], 1e-6) is not None)
+    (gm, gp, gs), (wm, wp, ws) = out["cuda"], out["cpu"]
+    tol = 1e-3 if flip else 1e-5
+    for key in ("loss", "ce", "grad_norm", "lr"):
+        assert abs(gm[key] - wm[key]) <= tol * abs(wm[key]), (key, gm, wm)
+    for name, w in wp.items():
+        # a gradient below 1e-3 of its leaf's largest (5% with a flip) may
+        # turn its step's sign: up to twice the learning rate there
+        g = (ws["v"][name] / (1 - 0.95)).sqrt()
+        leaf, small = (0.01, 0.05) if flip else (1e-4, 1e-3)
+        lr_frac = torch.where(g < small * g.max(), 2.0, 0.1)
+        bound = leaf * w.abs().max().item() + 1e-3 * lr_frac
+        assert bool(((gp[name] - w).abs() <= bound).all()), name
+    for k in ("m", "v"):
+        for name, w in ws[k].items():
+            frac = 0.05 if flip else 1e-4
+            assert (gs[k][name] - w).abs().max().item() <= frac * w.abs(
+                ).max().item(), (k, name)
