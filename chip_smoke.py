@@ -179,7 +179,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
                and moments equal the failure-free run's.  No hand-written
                kernel runs here either: the reference's training path calls
                none;
- 12. report    one ``{"kernels": [...]}`` line, then as the last line
+ 12. scale     scale-out on the card (``repro_torch.parallel``,
+               ``optim.compression``, ``ckpt.elastic``, ``launch.mesh``,
+               the launchers under ``torch.distributed.run``).  NCCL
+               refuses two ranks on one card, so every group of ranks here
+               is gloo, each rank's tensors on cuda:0 (printed): (a) which
+               collectives gloo runs on CUDA tensors (all-gather,
+               reduce-scatter, all-reduce SUM and MAX, broadcast; float32,
+               bfloat16, int32), each result printed, all must be right;
+               (b) ``python -m torch.distributed.run --nproc-per-node 4 -m
+               repro_torch.launch.train --arch llama3.2-3b --mesh 2x2
+               --backend gloo --steps 3 --batch 4 --seq 512
+               --microbatches 2`` at full width: finite losses, step 0's
+               within SCALE_LOSS of the train phase's one-device step 0,
+               every rank holding a quarter of every leaf sharded over both
+               axes; ms per step, each rank's peak device memory and the
+               collective bytes per step printed; (c)
+               ``compressed_all_reduce_tree`` on 4 ranks, CUDA tensors
+               against CPU tensors, bit for bit; (d) the elastic drill at
+               the smoke config: 2 steps on 2x2 and the next, whose losses
+               are held against one device's run of the same batches
+               (SCALE_STEP_LOSS before the first fake-quant code flip,
+               SCALE_FLIP_LOSS from it), saved on 2x2, restored onto 2x1
+               and onto one device, every leaf bit for bit; (e) ``launch.serve``
+               qwen3-4b at full width on a 2x1 mesh of 2 ranks, prompts 4 x
+               64, 8 decode steps: the greedy tokens equal the model
+               phase's one-device launch.  (a), (c) and (d)'s save share
+               one group of 4 ranks.  No hand-written kernel runs here:
+               the reference's scale-out path calls none;
+ 13. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
@@ -1951,15 +1979,19 @@ F32_TOL_FRAC = 1e-4
 EXPERT_TIE = 1e-6
 
 
-def _launch(launcher: str, args: list[str]) -> list[str]:
+def _launch(launcher: str, args: list[str], ranks: int = 1) -> list[str]:
     """``python -m repro_torch.launch.<launcher>`` on the card in a
-    subprocess; its output lines."""
+    subprocess, under ``torch.distributed.run`` with ``ranks`` processes
+    when there are several; its output lines."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-m",
-                           f"repro_torch.launch.{launcher}"] + args,
-                          capture_output=True, text=True, timeout=600,
+    run = [] if ranks == 1 else ["-m", "torch.distributed.run",
+                                 "--standalone", "--nproc-per-node",
+                                 str(ranks)]
+    proc = subprocess.run([sys.executable] + run + [
+                           "-m", f"repro_torch.launch.{launcher}"] + args,
+                          capture_output=True, text=True, timeout=900,
                           cwd=ROOT, env=env)
     check(proc.returncode == 0, f"launch.{launcher} failed: "
           f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
@@ -2078,8 +2110,19 @@ def _logits_ok(logits, cfg) -> bool:
                 and (pad <= torch.finfo(torch.float32).min).all())
 
 
+def _sample_tokens(lines: list[str]) -> list[int]:
+    """The token ids of a serve launch's ``sample:`` line (numpy may wrap
+    it over several lines)."""
+    i = next(i for i, ln in enumerate(lines) if ln.startswith("sample:"))
+    text = lines[i].removeprefix("sample:")
+    while "]" not in text:
+        i += 1
+        text += " " + lines[i]
+    return [int(x) for x in text.strip(" []").split()]
+
+
 def _serve_model(arch: str, card: str, work: Path, artifact: Path,
-                 pick: str | None = None) -> None:
+                 pick: str | None = None) -> list[int]:
     """One model of MODEL_ARCHS on the card (module doc, phase 10): at full
     width through prefill and greedy decode, decode after a prefill held
     against the longer prefill at full width in float32 (not for MoE), the
@@ -2087,7 +2130,8 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     launcher on the frontier store ``work``.  qwen3-4b (``pick``: the
     service phase's macro) adds the cache check in its bf16 config, the
     card against the CPU with fake-quant on, and a cold launch with the
-    profile phase's ``artifact`` before the warm one."""
+    profile phase's ``artifact`` before the warm one.  Returns the warm
+    launch's sample tokens (row 0's first 16)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2338,12 +2382,13 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
             + f"), {sel.serving_for(cfg.name).tokens_per_s!r} tok/s at "
             f"kernel fraction {fraction!r}")
     log(f"model: {arch} in all {time.perf_counter() - t_arch:.3f} s")
+    return _sample_tokens(lines)
 
 
-def phase_model(pick: str, artifact: Path) -> None:
+def phase_model(pick: str, artifact: Path) -> list[int]:
     """The port's model zoo on the card (module doc, phase 10): each of
     MODEL_ARCHS in turn, qwen3-4b first, through :func:`_serve_model` on
-    one frontier store."""
+    one frontier store.  Returns qwen3-4b's launch's sample tokens."""
     import shutil
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2353,9 +2398,10 @@ def phase_model(pick: str, artifact: Path) -> None:
     log(f"model: {card}")
     work = ROOT / "build" / "model"
     shutil.rmtree(work, ignore_errors=True)
-    for arch in MODEL_ARCHS:
-        _serve_model(arch, card, work / "cache", artifact,
-                     pick if arch == "qwen3-4b" else None)
+    samples = {arch: _serve_model(arch, card, work / "cache", artifact,
+                                  pick if arch == "qwen3-4b" else None)
+               for arch in MODEL_ARCHS}
+    return samples["qwen3-4b"]
 
 
 # ---------------------------------------------------------------------------
@@ -2469,9 +2515,10 @@ def _train_smoke(arch: str) -> None:
         f"{worst['p']:.3g}, m {worst['m']:.3g}, v {worst['v']:.3g}")
 
 
-def _train_full_width(card: str, work: Path) -> None:
+def _train_full_width(card: str, work: Path) -> float:
     """(b): llama3.2-3b at full width through the launcher (gated on its
-    printed losses), then the same run in this process, timed and traced."""
+    printed losses), then the same run in this process, timed and traced.
+    Returns step 0's loss."""
     import math
     import re
 
@@ -2565,6 +2612,7 @@ def _train_full_width(card: str, work: Path) -> None:
         f"{mean_ms / max(bound6, adam_ms):.1f}x it")
     del model, opt, m, step
     torch.cuda.empty_cache()
+    return losses[0]
 
 
 def _train_drill() -> None:
@@ -2593,8 +2641,9 @@ def _train_drill() -> None:
         f"{time.perf_counter() - t0:.3f} s")
 
 
-def phase_train() -> None:
-    """The training path on the card (module doc, phase 11)."""
+def phase_train() -> float:
+    """The training path on the card (module doc, phase 11); returns the
+    full-width run's step-0 loss."""
     import shutil
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2609,8 +2658,326 @@ def phase_train() -> None:
         _train_smoke(arch)
     log(f"train: ten smoke configs, card against CPU: "
         f"{time.perf_counter() - t0:.3f} s")
-    _train_full_width(card, work)
+    loss0 = _train_full_width(card, work)
     _train_drill()
+    return loss0
+
+
+# ---------------------------------------------------------------------------
+# 12. scale
+# ---------------------------------------------------------------------------
+
+# NCCL refuses two ranks on one card, and this run has one: every group of
+# ranks here is gloo, each rank's tensors on cuda:0.
+SCALE_BACKEND = "gloo"
+SCALE_RANKS = 4
+# (b) llama3.2-3b at full width on a 2x2 mesh of 4 ranks, the train
+# phase's batch; step 0's loss within SCALE_LOSS (relative) of the train
+# phase's.  The launcher prints 4 decimals: up to 4.1e-6 of rounding at a
+# loss near 12.3, so the limit leaves the sharded sum about 6e-6.
+SCALE_MESH, SCALE_STEPS, SCALE_LOSS = "2x2", 3, 1e-5
+# (d) the elastic drill at the smoke config; its sharded losses against one
+# device's, relative: the sharded step's tolerance in the tests, and the
+# tolerance of a loss from a step on which a fake-quant code flipped
+SCALE_ELASTIC_ARCH, SCALE_ELASTIC_BATCH, SCALE_ELASTIC_SEQ = (
+    "llama3.2-3b", 8, 32)
+SCALE_STEP_LOSS, SCALE_FLIP_LOSS = 1e-4, 1e-3
+# (e) qwen3-4b at full width on a 2x1 mesh of 2 ranks
+SCALE_SERVE_MESH, SCALE_SERVE_RANKS, SCALE_SERVE_DECODE = "2x1", 2, 8
+
+
+def _flat_leaves(tree) -> list:
+    """A checkpoint tree's leaves as bytes, in the checkpoint's order."""
+    from repro_torch.ckpt.manager import _flatten, _host_leaf
+
+    return [_host_leaf(x).array.tobytes() for x in _flatten(tree)]
+
+
+def _elastic_state(mesh, tree=None):
+    """The smoke config's train state on ``mesh`` (None: one device): the
+    seeded draw, or ``tree`` placed on it; its step and train step."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.models import get_model
+    from repro_torch.optim import constant_lr
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = smoke_config(SCALE_ELASTIC_ARCH)
+    api = get_model(cfg)
+    if tree is None:
+        model, opt = init_train_state(api, device="cuda", mesh=mesh)
+    else:
+        model, opt = train_state_from_numpy(cfg, tree, device="cuda",
+                                            mesh=mesh)
+    return cfg, model, opt, make_train_step(api, constant_lr(3e-3),
+                                            mesh=mesh)
+
+
+def _elastic_steps(model, opt, train, cfg, steps) -> tuple:
+    """The drill's train steps ``steps`` from (model, opt): the new state,
+    each step's loss and the hashes of each step's fake-quant code rows
+    (the last-axis rows of every code array of its forward passes: a
+    rank's rows are rows of the one-device step's where no code flips)."""
+    import hashlib
+
+    losses, rows = [], []
+    for i in steps:
+        codes = []
+        with _recording_codes(codes):
+            model, opt, m = train(model, opt, _elastic_batch(cfg, i))
+        losses.append(float(m["loss"]))
+        rows.append(sorted({
+            hashlib.blake2b(r.tobytes(), digest_size=8).hexdigest()
+            for q in codes for r in q.reshape(-1, q.shape[-1]).numpy()}))
+    return model, opt, losses, rows
+
+
+def _elastic_batch(cfg, i: int) -> dict:
+    from repro_torch.data import DataConfig, SyntheticCorpus
+
+    return SyntheticCorpus(DataConfig(
+        vocab=cfg.vocab, seq_len=SCALE_ELASTIC_SEQ,
+        global_batch=SCALE_ELASTIC_BATCH)).batch(i)
+
+
+def _elastic_restore(work: Path, mesh) -> dict:
+    """Restore the drill's checkpoint onto ``mesh``: whether every leaf
+    gathered back equals the file's bit for bit, and the next step's
+    loss."""
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import train_state_layout, train_state_to_numpy
+
+    layout = train_state_layout(smoke_config(SCALE_ELASTIC_ARCH))
+    tree, step = load_checkpoint(work / "ckpt", layout)
+    cfg, model, opt, train = _elastic_state(mesh, tree)
+    back = train_state_to_numpy(cfg, model, opt)
+    same = _flat_leaves(back) == _flat_leaves(tree)
+    _, _, m = train(model, opt, _elastic_batch(cfg, step))
+    return {"same": same, "step": step, "loss": float(m["loss"]),
+            "leaves": len(_flat_leaves(tree))}
+
+
+def _scale_drill(rank: int, world: int, work: str, what: str):
+    """One drill of the scale phase on this rank; its result."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as C
+
+    res = None
+    if what == "probe":
+        res = C.probe("cuda")
+    elif what == "compress":
+        from repro_torch.optim import (compressed_all_reduce_tree,
+                                       ef_state_init)
+        mesh = make_host_mesh((2, world // 2), ("pod", "data"))
+        pod = mesh.get_local_rank(0)
+        g = np.random.default_rng(SEED).normal(size=(8, 64)) * 0.01
+        res = {}
+        for dev in ("cuda", "cpu"):
+            grads = {"w": torch.tensor(g[4 * pod:4 * pod + 4],
+                                       dtype=torch.float32, device=dev)}
+            err = ef_state_init(grads)
+            out = []
+            for _ in range(2):         # the second round carries err
+                mean, err = compressed_all_reduce_tree(
+                    grads, err, mesh.get_group("pod"))
+                out += [mean["w"].cpu().numpy().tobytes().hex(),
+                        err["w"].cpu().numpy().tobytes().hex()]
+            res[dev] = out
+        every = [None] * world
+        dist.all_gather_object(every, res)
+        res = every
+    elif what == "elastic_save":
+        from repro_torch.ckpt import save_checkpoint
+        from repro_torch.convert import train_state_to_numpy
+
+        mesh = make_host_mesh((2, world // 2))
+        cfg, model, opt, train = _elastic_state(mesh)
+        model, opt, losses, rows = _elastic_steps(model, opt, train, cfg,
+                                                  range(2))
+        state = train_state_to_numpy(cfg, model, opt)
+        _, _, nxt, nrows = _elastic_steps(model, opt, train, cfg, [2])
+        if rank == 0:
+            save_checkpoint(Path(work) / "ckpt", 2, state)
+        every = [None] * world
+        dist.all_gather_object(every, rows + nrows)
+        res = {"losses": losses, "next": nxt[0], "rows": every}
+    elif what == "elastic_restore":
+        res = _elastic_restore(Path(work), make_host_mesh((world, 1)))
+    return res
+
+
+def _scale_rank(rank: int, world: int, work: str, whats: list[str]) -> None:
+    """One rank of a group of the scale phase on the card (gloo,
+    ``file://`` init in ``work``), running each drill of ``whats`` in
+    turn; rank 0 writes each result to ``work/<what>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(SCALE_BACKEND,
+                            init_method=f"file://{work}/init_{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        for what in whats:
+            res = _scale_drill(rank, world, work, what)
+            if rank == 0:
+                Path(work, f"{what}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _on_ranks(whats: list[str], world: int, work: Path) -> dict:
+    """Run the drills ``whats`` in one group of ``world`` ranks; their
+    results by name."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_scale_rank, args=(world, str(work), whats), nprocs=world,
+             join=True)
+    return {w: json.loads((work / f"{w}.json").read_text()) for w in whats}
+
+
+def phase_scale(train_loss0: float, serve_sample: list[int]) -> None:
+    """Scale-out on the card (module doc, phase 12): several ranks on the
+    one card in gloo groups."""
+    import math
+    import re
+    import shutil
+
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"scale: {card}; backend {SCALE_BACKEND}: NCCL refuses two ranks "
+        f"on one card, and this run has one card, so every group of ranks "
+        f"here is gloo with each rank's tensors on cuda:0")
+    work = ROOT / "build" / "scale"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    log(f"scale: this process holds {torch.cuda.memory_allocated()} bytes "
+        f"on the card ({torch.cuda.memory_reserved()} reserved) after the "
+        f"earlier phases")
+
+    # -- (a), (c) and (d)'s save: one group of 4 ranks ----------------------
+    t0 = time.perf_counter()
+    drills = _on_ranks(["probe", "compress", "elastic_save"], SCALE_RANKS,
+                       work)
+    t_drills = time.perf_counter() - t0
+    probe, comp, saved = (drills["probe"], drills["compress"],
+                          drills["elastic_save"])
+
+    # -- (a) which collectives gloo runs on CUDA tensors --------------------
+    for op, by_dtype in probe.items():
+        log(f"scale: gloo on cuda, {SCALE_RANKS} ranks: {op}: {by_dtype}")
+    check(all(v == "ok" for d in probe.values() for v in d.values()),
+          f"scale: a collective fails on CUDA tensors under gloo: {probe}")
+    log(f"scale: every collective of the scale-out path runs on CUDA "
+        f"tensors under gloo; none is staged through host memory by the "
+        f"port (the group of {SCALE_RANKS} ranks for (a), (c) and (d)'s "
+        f"save: {t_drills:.3f} s)")
+
+    # -- (b) llama3.2-3b at full width on a 2x2 mesh of 4 ranks -------------
+    t0 = time.perf_counter()
+    lines = _launch("train", [
+        "--arch", TRAIN_ARCH, "--mesh", SCALE_MESH, "--backend",
+        SCALE_BACKEND, "--steps", str(SCALE_STEPS), "--batch",
+        str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatches",
+        str(TRAIN_MICRO), "--save-every", "1000", "--ckpt-dir",
+        str(work / "train")], ranks=SCALE_RANKS)
+    wall = time.perf_counter() - t0
+    for line in lines:
+        log(f"  {line}")
+    printed = {int(m[1]): float(m[2]) for m in
+               (re.match(r"step +(\d+) loss=(\S+)", ln) for ln in lines)
+               if m}
+    check(sorted(printed) == [0, SCALE_STEPS - 1]
+          and all(math.isfinite(x) for x in printed.values()),
+          f"scale: the 2x2 run's losses: {printed}")
+    rel = abs(printed[0] - train_loss0) / abs(train_loss0)
+    check(rel <= SCALE_LOSS, f"scale: step 0's loss {printed[0]} on 2x2, "
+          f"{train_loss0!r} on one device (rel {rel:.3g})")
+    share = next(ln for ln in lines if ln.startswith("mesh: ") and
+                 "share held per rank" in ln)
+    shares = [float(x) for x in
+              share.split("share held per rank ")[1].strip("[]").split(",")]
+    check(len(shares) == SCALE_RANKS and all(x == 0.25 for x in shares),
+          f"scale: the leaves sharded over both axes: {share}")
+    log(f"scale: launch.train {TRAIN_ARCH} full width on a {SCALE_MESH} "
+        f"mesh of {SCALE_RANKS} ranks on {card}: step 0's loss "
+        f"{printed[0]} against the one-device {train_loss0!r} (rel "
+        f"{rel:.3g} <= {SCALE_LOSS}); each rank holds a quarter of every "
+        f"leaf sharded over both axes; {wall:.3f} s with start-up")
+
+    # -- (c) compression: 4 ranks on CUDA tensors == on CPU tensors ---------
+    check(all(r["cuda"] == r["cpu"] for r in comp),
+          "scale: compressed_all_reduce_tree on CUDA tensors differs from "
+          "the CPU's")
+    log(f"scale: compressed_all_reduce_tree over the pod group of a (2, 2) "
+        f"('pod', 'data') mesh, N(0, 0.01) gradients from default_rng(0), "
+        f"two rounds with error feedback: every rank's mean and error on "
+        f"the card equal the CPU's bit for bit")
+
+    # -- (d) elastic: save on 2x2, resume on 2x1 and 1x1 --------------------
+    t0 = time.perf_counter()
+    cfg, model, opt, train = _elastic_state(None)
+    _, _, want, want_rows = _elastic_steps(model, opt, train, cfg, range(3))
+    del model, opt
+    got = saved["losses"] + [saved["next"]]
+    flip = next((i for i, w in enumerate(want_rows)
+                 if any(not set(r[i]) <= set(w) for r in saved["rows"])),
+                None)
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = SCALE_STEP_LOSS if flip is None or i < flip else \
+            SCALE_FLIP_LOSS
+        check(abs(g - w) <= tol * abs(w),
+              f"scale: elastic drill step {i}: loss {g!r} on 2x2, {w!r} on "
+              f"one device (first code flip at step {flip})")
+    log(f"scale: elastic drill, steps 0-2 on 2x2 against one device: "
+        f"losses {got} / {want}, rel "
+        f"{', '.join(f'{abs(g - w) / abs(w):.3g}' for g, w in zip(got, want))}"
+        f" within {SCALE_STEP_LOSS}, or {SCALE_FLIP_LOSS} from the first "
+        f"fake-quant code flip (step {flip})")
+    two = _on_ranks(["elastic_restore"], 2, work)["elastic_restore"]
+    one = _elastic_restore(work, None)
+    check(two["same"] and one["same"] and two["step"] == one["step"] == 2,
+          f"scale: elastic restore: 2x1 {two}, 1x1 {one}")
+    log(f"scale: elastic drill ({SCALE_ELASTIC_ARCH} smoke, batch "
+        f"{SCALE_ELASTIC_BATCH}x{SCALE_ELASTIC_SEQ}): 2 steps on 2x2 "
+        f"(losses {saved['losses']}), checkpoint of the global arrays; "
+        f"restored onto 2x1 and onto one device, all {one['leaves']} "
+        f"leaves gathered back equal the file bit for bit; next loss "
+        f"{saved['next']!r} on 2x2, {two['loss']!r} on 2x1, "
+        f"{one['loss']!r} on one device (the restores: "
+        f"{time.perf_counter() - t0:.3f} s)")
+
+    # -- (e) qwen3-4b at full width on a 2x1 mesh of 2 ranks ----------------
+    t0 = time.perf_counter()
+    lines = _launch("serve", [
+        "--arch", "qwen3-4b", "--mesh", SCALE_SERVE_MESH, "--backend",
+        SCALE_BACKEND, "--batch", str(MODEL_BATCH), "--prompt-len",
+        str(MODEL_PROMPT), "--decode-steps", str(SCALE_SERVE_DECODE)],
+        ranks=SCALE_SERVE_RANKS)
+    wall = time.perf_counter() - t0
+    for line in lines:
+        log(f"  {line}")
+    got = _sample_tokens(lines)
+    want = serve_sample[:SCALE_SERVE_DECODE]
+    check(got == want, f"scale: qwen3-4b on {SCALE_SERVE_MESH}: greedy "
+          f"tokens {got}, one device {want}")
+    log(f"scale: launch.serve qwen3-4b full width on a {SCALE_SERVE_MESH} "
+        f"mesh of {SCALE_SERVE_RANKS} ranks, prompts {MODEL_BATCH}x"
+        f"{MODEL_PROMPT}, {SCALE_SERVE_DECODE} decode steps: row 0's "
+        f"tokens {got} == the model phase's one-device launch; {wall:.3f} s "
+        f"with start-up")
 
 
 def main() -> int:
@@ -2649,16 +3016,18 @@ def main() -> int:
     t8 = time.perf_counter()
     pick = phase_service(chosen["results"], serving)
     t9 = time.perf_counter()
-    phase_model(pick, artifact)
+    serve_sample = phase_model(pick, artifact)
     t10 = time.perf_counter()
-    phase_train()
+    train_loss0 = phase_train()
     t11 = time.perf_counter()
+    phase_scale(train_loss0, serve_sample)
+    t12 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"shard {t2b - t2:.3f} s, mac {t3 - t2b:.3f} s, csa {t4 - t3:.3f} s, "
         f"ssm {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
         f"{t7 - t6:.3f} s, serving {t8 - t7:.3f} s, service "
         f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s, train "
-        f"{t11 - t10:.3f} s")
+        f"{t11 - t10:.3f} s, scale {t12 - t11:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

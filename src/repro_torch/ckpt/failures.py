@@ -9,7 +9,7 @@ data pipeline (counter-based batches) makes the restart exactly-once.
 Straggler mitigation: the checkpoint fence (CheckpointManager.wait with
 timeout) bounds how long a slow host can hold the job; on fence timeout the
 driver treats it as a failure and restarts on the surviving capacity
-(an elastic re-mesh, which waits for ROADMAP.md queue 1, item 8c).
+(an elastic re-mesh: :func:`repro_torch.ckpt.elastic.reshard_tree`).
 """
 
 from __future__ import annotations

@@ -278,10 +278,13 @@ def _host(t: torch.Tensor):
 
 def _reference_tree(model, values: Mapping[str, torch.Tensor]) -> dict:
     """``values`` (by the model's parameter names) as the reference's
-    plain tree on the host, each stacked leaf's layers in order."""
+    plain tree on the host, each stacked leaf's layers in order; a DTensor
+    value (a mesh's pieces) is gathered whole first, on every rank."""
+    from .parallel.zero import full_value
+
     groups: dict[str, list] = {}
     for name, (ref, index) in _reference_names(model).items():
-        t = values[name].detach().cpu()
+        t = full_value(values[name]).detach().cpu()
         if index is None:
             groups[ref] = _host(t)
         else:
@@ -298,7 +301,9 @@ def train_state_to_numpy(cfg, model, opt_state: Mapping[str, Any]
                          ) -> tuple[dict, dict]:
     """The port's model and AdamW state as the reference's ``(params,
     opt_state)`` plain trees on the host (module doc): the parameters in
-    their dtypes, ``m`` and ``v`` float32, ``count`` an int32 scalar."""
+    their dtypes, ``m`` and ``v`` float32, ``count`` an int32 scalar.  On
+    a mesh of ranks each leaf is gathered whole (the checkpoint's global
+    arrays), so every rank must call it."""
     params = dict(model.named_parameters())
     check = set(params)
     for key in ("m", "v"):
@@ -322,11 +327,15 @@ def train_state_layout(cfg) -> tuple[dict, dict]:
     return _nest(refs), {"count": 0, "m": _nest(refs), "v": _nest(refs)}
 
 
-def train_state_from_numpy(cfg, tree, device=None):
+def train_state_from_numpy(cfg, tree, device=None, mesh=None):
     """The reference's ``(params, opt_state)`` trees (the JAX package's
     leaves as numpy, :func:`train_state_to_numpy`'s, or a checkpoint's) as
     the port's model and AdamW state on ``device`` (``None``: the CUDA
-    card)."""
+    card).  With a ``mesh`` (a ``DeviceMesh``) the parameters and moments
+    are then placed on it by :func:`repro_torch.ckpt.elastic.reshard_tree`,
+    the parameters by the logical rules and the moments like them
+    (:func:`repro_torch.optim.adamw.opt_specs_like`), each rank keeping
+    its pieces."""
     params, opt = tree
     dev = resolve_device(device)
     model = model_params_from_numpy(cfg, params, device=dev)
@@ -344,4 +353,20 @@ def train_state_from_numpy(cfg, tree, device=None):
             state[key][name] = _tensor_from_numpy(value, torch.float32, dev)
     state["count"] = torch.tensor(int(opt["count"]), dtype=torch.int32,
                                   device=dev)
+    if mesh is not None:
+        from .ckpt.elastic import reshard_tree
+        from .optim.adamw import opt_specs_like
+        from .parallel.logical import logical_axes
+        from .parallel.sharding import logical_to_spec, rules_for_mesh
+        from .parallel.zero import set_parameters
+
+        rules = rules_for_mesh(mesh, cfg.sharding_overrides)
+        specs = {name: logical_to_spec(axes, rules)
+                 for name, axes in logical_axes(model).items()}
+        set_parameters(model, reshard_tree(
+            {n: p.detach() for n, p in model.named_parameters()}, mesh,
+            specs))
+        moment_specs = opt_specs_like(specs)
+        for key in ("m", "v"):
+            state[key] = reshard_tree(state[key], mesh, moment_specs[key])
     return model, state

@@ -3,6 +3,9 @@ the JAX package's ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
         --batch 4 --prompt-len 64 --decode-steps 64 --mesh 1x1
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.serve --arch qwen3-4b \\
+        --smoke --device cpu --backend gloo --mesh 2x1    # 2 CPU ranks
 
 It runs on the CUDA card unless ``--device cpu`` asks for the CPU
 (``--smoke --device cpu`` is the reduced config on the CPU).  Parameters are
@@ -30,55 +33,36 @@ PATH.  ``--dcim-kernel-profile PATH`` feeds a measured
 ``scripts/torch_profile_kernels.py --json`` artifact into the serving
 roofline (``kernel_fraction`` derate).
 
-``--mesh`` keeps the reference's rule: the shape shrinks to the visible
-device count.  A mesh that still spans more than one device raises
-``NotImplementedError``: sharded serving waits for ROADMAP.md queue 1,
-item 8c.
+Under ``torch.distributed.run`` the ranks join one process group with
+``--backend`` and ``--mesh`` is a mesh of them (the reference's sharded
+serving): the parameters are placed by the logical rules and gathered whole
+per block as it runs, the prompt batch splits over the batch ranks (each
+rank's decode state holds its own rows; a MoE layer whose token groups
+would span them gathers the global batch, :mod:`repro_torch.models.moe`),
+and rank 0 gathers the greedy tokens and prints the reference's lines.
+``--dcim-select`` runs on rank 0 alone: like the reference's, it reports
+the selection and changes nothing the ranks run.  A mesh wider than the
+world shrinks by the reference's rule
+(:func:`repro_torch.launch.mesh.make_host_mesh`).
 """
 
 from __future__ import annotations
 
 import argparse
-import math
+import contextlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_config, smoke_config
-from ..device import resolve_device
 from ..models import get_model
 from ..serve import make_decode_step, make_prefill
 from ..serve.config import serve_config_from_args
 from ..serve.step import greedy_argmax
-
-
-def parse_mesh(s: str):
-    dims = tuple(int(x) for x in s.split("x"))
-    axes = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
-    return dims, axes
-
-
-def device_count(device: torch.device) -> int:
-    """Devices of ``device``'s kind the process sees: the CUDA cards, or 1
-    for the CPU."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
-
-
-def make_host_mesh(shape: tuple[int, ...] = (1, 1),
-                   axes: tuple[str, ...] = ("data", "model"), *,
-                   n_devices: int) -> dict[str, int]:
-    """The reference's small host mesh as ``{axis: size}``: a shape wider
-    than ``n_devices`` shrinks to ``(1, ..., n_devices)``.  A mesh that
-    still spans more than one device raises ``NotImplementedError``."""
-    if math.prod(shape) > n_devices:
-        shape = (1,) * (len(shape) - 1) + (n_devices,)
-    if math.prod(shape) > 1:
-        raise NotImplementedError(
-            f"mesh {dict(zip(axes, shape))} spans {math.prod(shape)} "
-            "devices; a mesh over more than one device is not ported yet "
-            "(ROADMAP.md queue 1, item 8c)")
-    return dict(zip(axes, shape))
+from .mesh import (BACKENDS, init_distributed, is_main, make_host_mesh,
+                   mesh_dims, parse_mesh)
 
 
 def device_name(device: torch.device) -> str:
@@ -100,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device to serve on (default: the CUDA card; "
                          "'cpu' for the CPU)")
     ap.add_argument("--mesh", default="1x1")
+    ap.add_argument("--backend", choices=BACKENDS, default="nccl",
+                    help="process-group backend under "
+                         "torch.distributed.run (gloo for several ranks "
+                         "on one card or on the CPU)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--decode-steps", type=int, default=64)
@@ -231,22 +219,32 @@ def _select(cfg, dcim, device: torch.device) -> None:
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    device = init_distributed(args.backend, args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dcim = serve_config_from_args(args)
     if dcim.trace is not None:
         from .. import obs
         obs.configure(enabled=True, sample=dcim.trace_sample)
-    if dcim.select:
+    main_rank = is_main()
+    if dcim.select and main_rank:
         _select(cfg, dcim, device)
     api = get_model(cfg)
     dims, axes = parse_mesh(args.mesh)
-    mesh = make_host_mesh(dims, axes, n_devices=device_count(device))
+    mesh = make_host_mesh(dims, axes, device_type=device.type)
+    ranks = None if isinstance(mesh, dict) else mesh
     name = device_name(device)
 
     t0 = time.perf_counter()
-    model = api.init_params(torch.Generator(device=device).manual_seed(0),
-                            device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if ranks is None:
+        model = api.init_params(gen, device=device)
+    else:
+        from ..models import model_class
+        from ..parallel.sharding import rules_for_mesh
+        from ..parallel.zero import shard_model
+        rules = rules_for_mesh(ranks, cfg.sharding_overrides)
+        model = shard_model(model_class(cfg)(cfg, device="meta"), ranks,
+                            rules, generator=gen, device=device)
     _sync(device)
     t_init = time.perf_counter() - t0
 
@@ -259,34 +257,56 @@ def main(argv: list[str] | None = None) -> None:
         frontend = torch.as_tensor(rng.normal(size=(
             args.batch, cfg.frontend.n_tokens, cfg.frontend.d_frontend)),
             dtype=torch.float32, device=device)
+    over = contextlib.nullcontext()
+    if ranks is not None:           # this rank's rows of the prompt batch
+        from ..parallel.zero import (batch_axes, data_parallel, dp_rank,
+                                     dp_size)
+        baxes = batch_axes(ranks, rules)
+        over = data_parallel(ranks, baxes)
+        n_dp, r_dp = dp_size(ranks, baxes), dp_rank(ranks, baxes)
+        if args.batch % n_dp:
+            raise ValueError(f"--batch {args.batch} does not split over "
+                             f"{n_dp} batch ranks")
+        per = args.batch // n_dp
+        prompts = prompts[r_dp * per:(r_dp + 1) * per]
+        if frontend is not None:
+            frontend = frontend[r_dp * per:(r_dp + 1) * per]
 
     cache_len = args.prompt_len + args.decode_steps
     prefill = make_prefill(api, cache_len)
     decode = make_decode_step(api)
 
-    t0 = time.perf_counter()
-    logits, state = prefill(model, prompts, frontend)
-    _sync(device)
-    t_prefill = time.perf_counter() - t0
-    tok = greedy_argmax(logits)
-    out = [tok]
-    t1 = time.perf_counter()
-    for _ in range(args.decode_steps - 1):
-        logits, state = decode(model, state, tok)
+    with over:
+        t0 = time.perf_counter()
+        logits, state = prefill(model, prompts, frontend)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
         tok = greedy_argmax(logits)
-        out.append(tok)
-    _sync(device)
-    t_decode = time.perf_counter() - t1
+        out = [tok]
+        t1 = time.perf_counter()
+        for _ in range(args.decode_steps - 1):
+            logits, state = decode(model, state, tok)
+            tok = greedy_argmax(logits)
+            out.append(tok)
+        _sync(device)
+        t_decode = time.perf_counter() - t1
+    tokens = torch.cat(out, dim=1)
+    if ranks is not None:
+        from ..parallel.zero import gather_rows
+        tokens = gather_rows(tokens, ranks, baxes)
+    if not main_rank:
+        dist.destroy_process_group()
+        return
 
     n_tok = args.batch * args.decode_steps
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} mesh={mesh} device={device}")
+    print(f"arch={cfg.name} mesh={mesh_dims(mesh)} device={device}")
     print(f"init   : {n_params} parameters in {t_init:.2f}s on {name}")
     print(f"prefill: {args.batch}x{args.prompt_len} tokens in "
           f"{t_prefill:.2f}s on {name}")
     print(f"decode : {n_tok} tokens in {t_decode:.2f}s "
           f"({n_tok / max(t_decode, 1e-9):.1f} tok/s) on {name}")
-    print("sample:", torch.cat(out, dim=1)[0, :16].cpu().numpy())
+    print("sample:", tokens[0, :16].cpu().numpy())
 
     if dcim.trace is not None:
         from ..obs import tracer
@@ -294,6 +314,8 @@ def main(argv: list[str] | None = None) -> None:
         n = write_chrome_trace(tracer.drain(), dcim.trace)
         print(f"dcim: trace: {n} span events -> {dcim.trace} "
               f"(load at ui.perfetto.dev or chrome://tracing)")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

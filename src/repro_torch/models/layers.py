@@ -18,9 +18,15 @@ d_out)``) and are drawn by :func:`init_param`, the reference's
 ``fan_in ** -0.5``, cast to the parameter dtype.  The draws come from an
 explicit ``torch.Generator``, so the numbers differ from ``jax.random``'s;
 tests carry the reference's parameters across instead
-(:func:`repro_torch.convert.model_params_from_numpy`).  The reference's
-logical-axis trees and activation sharding constraints are left out: on one
-device they do nothing, and sharding waits for ROADMAP.md queue 1, item 8c.
+(:func:`repro_torch.convert.model_params_from_numpy`).
+
+Each parameter records the reference's logical axes where it is made
+(:func:`repro_torch.parallel.logical.logical_axes`), and every weight is
+read through :func:`repro_torch.parallel.zero.whole`: on a mesh of ranks a
+sharded weight is gathered whole just before use, on one device it is the
+parameter itself.  The reference's activation constraints
+(:func:`~repro_torch.parallel.sharding.constrain_act`) sit at its call
+sites.
 
 Training rematerialises as the reference does (:func:`remat`, its
 ``jax.checkpoint``): each block, and each chunk of the chunked scan, keeps
@@ -35,7 +41,13 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..parallel.sharding import constrain_act
+from ..parallel.zero import whole
 from ..quant import fake_quant
+
+# weight out-axis -> activation logical axis (for constrain_act)
+_ACT_OF = {"heads": "act_heads", "kv_heads": "act_heads", "ff": "act_ff",
+           "embed": "act_embed", "vocab": "act_vocab"}
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -69,8 +81,13 @@ def remat(fn, *args, enabled: bool):
     return fn(*args)
 
 
-def _empty(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+def _empty(shape, dtype, device, axes: tuple) -> nn.Parameter:
+    """An uninitialised parameter recording its logical axes
+    (:func:`repro_torch.parallel.logical.logical_axes`)."""
+    assert len(shape) == len(axes), (shape, axes)
+    p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    p.logical_axes = tuple(axes)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -99,13 +116,16 @@ def dcim_linear_apply(w: torch.Tensor, x: torch.Tensor, *, a_bits: int = 8,
 
 
 class DcimLinear(nn.Module):
-    """A ``(d_in, d_out)`` weight ``w`` applied by :func:`dcim_linear_apply`
-    with the config's DCIM precisions."""
+    """A ``(d_in, d_out)`` weight ``w`` with logical ``axes`` applied by
+    :func:`dcim_linear_apply` with the config's DCIM precisions; a 3-D
+    output is constrained to ``('batch', 'seq', <out_ax>)`` (``out_ax``
+    defaults to the weight's output axis)."""
 
     def __init__(self, d_in: int, d_out: int, cfg, dtype: torch.dtype,
-                 device):
+                 device, axes: tuple[str, str], out_ax: str | None = None):
         super().__init__()
-        self.w = _empty((d_in, d_out), dtype, device)
+        self.w = _empty((d_in, d_out), dtype, device, axes)
+        self.out_ax = axes[1] if out_ax is None else out_ax
         self.a_bits, self.w_bits = cfg.dcim_a_bits, cfg.dcim_w_bits
         self.enabled = cfg.dcim_enabled
 
@@ -114,26 +134,32 @@ class DcimLinear(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
-        return dcim_linear_apply(
-            self.w, x, a_bits=self.a_bits, w_bits=self.w_bits,
+        y = dcim_linear_apply(
+            whole(self.w), x, a_bits=self.a_bits, w_bits=self.w_bits,
             enabled=self.enabled,
             compute_dtype=x.dtype if compute_dtype is None else compute_dtype)
+        if y.ndim == 3:
+            y = constrain_act(y, ("batch", "seq",
+                                  _ACT_OF.get(self.out_ax, self.out_ax)))
+        return y
 
 
 class Projection(nn.Module):
     """A plain ``(d_in, d_out)`` weight ``w`` (no fake-quant): the untied
     unembedding and the frontend projector."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device):
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, device,
+                 axes: tuple[str, str]):
         super().__init__()
-        self.w = _empty((d_in, d_out), dtype, device)
+        self.w = _empty((d_in, d_out), dtype, device, axes)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_param(self.w, generator)
 
     def forward(self, x: torch.Tensor, compute_dtype: torch.dtype
                 ) -> torch.Tensor:
-        return torch.matmul(x.to(compute_dtype), self.w.to(compute_dtype))
+        return torch.matmul(x.to(compute_dtype),
+                            whole(self.w).to(compute_dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -153,16 +179,16 @@ class RMSNorm(nn.Module):
     """RMS norm with a float32 gain ``g`` (ones at init); the math runs in
     float32 and the result is cast back to the input's dtype."""
 
-    def __init__(self, d: int, device):
+    def __init__(self, d: int, device, axis: str = "act_embed"):
         super().__init__()
-        self.g = _empty((d,), torch.float32, device)
+        self.g = _empty((d,), torch.float32, device, (axis,))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.g.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rmsnorm_apply(self.g, x)
+        return rmsnorm_apply(whole(self.g), x)
 
 
 class Embedding(nn.Module):
@@ -171,7 +197,7 @@ class Embedding(nn.Module):
 
     def __init__(self, vocab: int, d: int, dtype: torch.dtype, device):
         super().__init__()
-        self.emb = _empty((vocab, d), dtype, device)
+        self.emb = _empty((vocab, d), dtype, device, ("vocab", "embed"))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init_param(self.emb, generator, scale=self.emb.shape[1] ** -0.5)
@@ -180,12 +206,14 @@ class Embedding(nn.Module):
                 ) -> torch.Tensor:
         # the rows gathered, then cast: the same values as the reference's
         # cast-then-gather without casting the whole table
-        return self.emb[tokens].to(compute_dtype)
+        out = whole(self.emb)[tokens].to(compute_dtype)
+        return constrain_act(out, ("batch", "seq", "act_embed"))
 
     def unembed(self, x: torch.Tensor, compute_dtype: torch.dtype
                 ) -> torch.Tensor:
-        return torch.matmul(x.to(compute_dtype),
-                            self.emb.to(compute_dtype).T)
+        out = torch.matmul(x.to(compute_dtype),
+                           whole(self.emb).to(compute_dtype).T)
+        return constrain_act(out, ("batch", "seq", "act_vocab"))
 
 
 def mask_padded_vocab(logits: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -337,10 +365,14 @@ class Attention(nn.Module):
         super().__init__()
         d, hd = cfg.d_model, cfg.hd
         self.cfg = cfg
-        self.wq = DcimLinear(d, cfg.n_heads * hd, cfg, dtype, device)
-        self.wk = DcimLinear(d, cfg.n_kv_heads * hd, cfg, dtype, device)
-        self.wv = DcimLinear(d, cfg.n_kv_heads * hd, cfg, dtype, device)
-        self.wo = DcimLinear(cfg.n_heads * hd, d, cfg, dtype, device)
+        self.wq = DcimLinear(d, cfg.n_heads * hd, cfg, dtype, device,
+                             ("embed", "heads"))
+        self.wk = DcimLinear(d, cfg.n_kv_heads * hd, cfg, dtype, device,
+                             ("embed", "kv_heads"))
+        self.wv = DcimLinear(d, cfg.n_kv_heads * hd, cfg, dtype, device,
+                             ("embed", "kv_heads"))
+        self.wo = DcimLinear(cfg.n_heads * hd, d, cfg, dtype, device,
+                             ("heads", "embed"))
         if cfg.qk_norm:
             self.q_norm = RMSNorm(hd, device)
             self.k_norm = RMSNorm(hd, device)
@@ -407,6 +439,10 @@ class Attention(nn.Module):
             out = torch.einsum("bkgst,btkd->bskgd", w, cv.to(x.dtype))
             out = out.reshape(b, s, hq, hd)
         else:
+            # K/V gathered across any sequence sharding once, before the
+            # q-block loop
+            k = constrain_act(k, ("batch", "attn_kv_seq", "act_heads", None))
+            v = constrain_act(v, ("batch", "attn_kv_seq", "act_heads", None))
             out = blockwise_attention(q, k, v, causal=causal,
                                       q_block=cfg.attn_q_block,
                                       kv_block=cfg.attn_kv_block)
@@ -425,9 +461,9 @@ class Mlp(nn.Module):
                  d_ff: int | None = None):
         super().__init__()
         d, ff = cfg.d_model, d_ff or cfg.d_ff
-        self.w_gate = DcimLinear(d, ff, cfg, dtype, device)
-        self.w_up = DcimLinear(d, ff, cfg, dtype, device)
-        self.w_down = DcimLinear(ff, d, cfg, dtype, device)
+        self.w_gate = DcimLinear(d, ff, cfg, dtype, device, ("embed", "ff"))
+        self.w_up = DcimLinear(d, ff, cfg, dtype, device, ("embed", "ff"))
+        self.w_down = DcimLinear(ff, d, cfg, dtype, device, ("ff", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.w_gate(x)
@@ -474,5 +510,6 @@ class ZooModel(nn.Module):
         if self.unembed is None:
             out = self.embed.unembed(x, cd)
         else:
-            out = self.unembed(x, cd)
+            out = constrain_act(self.unembed(x, cd),
+                                ("batch", "seq", "act_vocab"))
         return mask_padded_vocab(out, self.cfg.vocab)

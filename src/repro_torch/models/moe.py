@@ -7,8 +7,19 @@ Dispatch is the reference's einsum formulation: token groups of
 experts run as batched einsums over every expert's capacity slots, and the
 combine einsum gathers them back.  All experts' weights pass through the
 DCIM fake-quant in every call (per expert and output column), as in the
-reference.  The reference's expert-parallel sharding constraints are left
-out: on one device they do nothing.
+reference.  The reference's expert-parallel sharding constraints sit at
+its call sites (:func:`~repro_torch.parallel.sharding.constrain_act`).
+
+Over batch ranks (:func:`repro_torch.parallel.zero.data_parallel`, which
+the sharded train step and the sharded serving launcher enter) each rank
+groups its own tokens.  They are the reference's groups of the global
+token order only when a rank holds a multiple of ``MOE_GROUP`` tokens.
+Otherwise a group would span ranks: without gradients (serving) every
+rank gathers the batch ranks' tokens, runs the layer on the global batch
+and keeps its own rows, which is exact; with gradients (training) the
+layer raises ``ValueError``.  The load-balance loss's ``density`` and
+``p_mean`` are averaged over the batch ranks before their product, so it
+is the global one.
 
 The model is the port's :class:`~repro_torch.models.transformer.Transformer`
 with each block's MLP replaced by :class:`MoeMlp`; ``forward_train``
@@ -22,6 +33,8 @@ import math
 import torch
 from torch import nn
 
+from ..parallel.sharding import constrain_act
+from ..parallel.zero import dp_all_rows, dp_mean, dp_size_now
 from ..quant import fake_quant
 from . import layers as L
 from .transformer import Transformer
@@ -62,9 +75,10 @@ def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int):
         d_slot = onehot.to(torch.float32)[..., None] * posoh[..., None, :]
         dispatch = dispatch | (d_slot > 0)
         combine = combine + d_slot * topv[..., slot][..., None, None]
-    # load-balance aux (Switch): E * sum_e f_e * p_e
-    density = dispatch.any(-1).to(torch.float32).mean(dim=(0, 1))  # (E,)
-    p_mean = gates.mean(dim=(0, 1))
+    # load-balance aux (Switch): E * sum_e f_e * p_e, both means over every
+    # group, those of the other batch ranks too
+    density = dp_mean(dispatch.any(-1).to(torch.float32).mean(dim=(0, 1)))
+    p_mean = dp_mean(gates.mean(dim=(0, 1)))
     aux = e * torch.sum(density * p_mean)
     return dispatch, combine, aux
 
@@ -79,10 +93,13 @@ class MoeMlp(nn.Module):
         super().__init__()
         d, e, ff = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_expert
         self.cfg = cfg
-        self.router = L._empty((d, e), dtype, device)
-        self.w_gate = L._empty((e, d, ff), dtype, device)
-        self.w_up = L._empty((e, d, ff), dtype, device)
-        self.w_down = L._empty((e, ff, d), dtype, device)
+        self.router = L._empty((d, e), dtype, device, ("embed", "experts"))
+        self.w_gate = L._empty((e, d, ff), dtype, device,
+                               ("experts", "embed", "expert_ff"))
+        self.w_up = L._empty((e, d, ff), dtype, device,
+                             ("experts", "embed", "expert_ff"))
+        self.w_down = L._empty((e, ff, d), dtype, device,
+                               ("experts", "expert_ff", "embed"))
         self.a_bits, self.w_bits = cfg.dcim_a_bits, cfg.dcim_w_bits
         self.enabled = cfg.dcim_enabled
 
@@ -92,7 +109,23 @@ class MoeMlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """x: (B, S, d) -> (y, aux_loss).  B·S must be at most
-        ``MOE_GROUP`` or a multiple of it, as in the reference."""
+        ``MOE_GROUP`` or a multiple of it, as in the reference; over batch
+        ranks, the global batch's (module doc)."""
+        b, s, _ = x.shape
+        if dp_size_now() > 1 and (b * s) % MOE_GROUP:
+            if torch.is_grad_enabled():
+                raise ValueError(
+                    f"MoE token groups of {MOE_GROUP} would span data "
+                    f"ranks: this rank holds {b * s} tokens ({b} x {s}), "
+                    f"not a multiple of {MOE_GROUP}; give each batch rank "
+                    f"a multiple of {MOE_GROUP} tokens per microbatch")
+            xs, first = dp_all_rows(x)
+            y, aux = self._grouped(xs)
+            return y[first:first + b], aux
+        return self._grouped(x)
+
+    def _grouped(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layer on the tokens of ``x`` in groups of ``MOE_GROUP``."""
         cd = x.dtype
         b, s, d = x.shape
         e, k = self.cfg.moe.n_experts, self.cfg.moe.top_k
@@ -106,15 +139,16 @@ class MoeMlp(nn.Module):
                             f"(size {gcount * sg * d})")
         xg = x.reshape(gcount, sg, d)
         logits = torch.matmul(xg.to(torch.float32),
-                              self.router.to(torch.float32))
+                              L.whole(self.router).to(torch.float32))
         gates = torch.softmax(logits, dim=-1)
         cap = max(1, int(math.ceil(sg * k / e * self.cfg.moe.capacity_factor)))
         dispatch, combine, aux = _top_k_dispatch(gates, k, cap)
 
         # dispatch: (G,Sg,E,C) x (G,Sg,d) -> (E,G,C,d)
         xin = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), xg)
-        wg, wu, wd = (w.to(cd) for w in (self.w_gate, self.w_up,
-                                         self.w_down))
+        xin = constrain_act(xin, ("experts", "batch", None, None))
+        wg, wu, wd = (L.whole(w).to(cd) for w in (self.w_gate, self.w_up,
+                                                  self.w_down))
         if self.enabled:
             wg = fake_quant(wg, self.w_bits, 1)
             wu = fake_quant(wu, self.w_bits, 1)
@@ -124,8 +158,10 @@ class MoeMlp(nn.Module):
         h = gate * torch.sigmoid(gate) * torch.einsum("egcd,edf->egcf", xin,
                                                       wu)
         hout = torch.einsum("egcf,efd->egcd", h, wd)
+        hout = constrain_act(hout, ("experts", "batch", None, None))
         # combine back: (G,Sg,E,C) x (E,G,C,d) -> (G,Sg,d)
         y = torch.einsum("gsec,egcd->gsd", combine.to(cd), hout)
+        y = constrain_act(y, ("batch", None, None))
         return y.reshape(b, s, d), aux
 
 

@@ -50,20 +50,25 @@ class Block(nn.Module):
         self.ln_t = L.RMSNorm(d, device)
         self.ln_c = L.RMSNorm(d, device)
         for name in self.MU:
-            setattr(self, name, L._empty((d,), f32, device))
+            setattr(self, name, L._empty((d,), f32, device, ("act_embed",)))
         # time-mix
-        for name in ("wr", "wk", "wv", "wg", "wo"):
-            setattr(self, name, L.DcimLinear(d, d, cfg, dtype, device))
+        for name in ("wr", "wk", "wv", "wg"):
+            setattr(self, name, L.DcimLinear(d, d, cfg, dtype, device,
+                                             ("embed", "heads")))
+        self.wo = L.DcimLinear(d, d, cfg, dtype, device, ("heads", "embed"))
         # data-dependent decay LoRA: w = exp(-exp(w0 + tanh(x A) B))
-        self.w0 = L._empty((d,), f32, device)
-        self.wA = L._empty((d, LORA_R), dtype, device)
-        self.wB = L._empty((LORA_R, d), dtype, device)
-        self.u = L._empty((h, dk), f32, device)
+        self.w0 = L._empty((d,), f32, device, ("act_embed",))
+        self.wA = L._empty((d, LORA_R), dtype, device, ("embed", None))
+        self.wB = L._empty((LORA_R, d), dtype, device, (None, "heads"))
+        self.u = L._empty((h, dk), f32, device, ("act_heads", None))
         self.ln_x = L.RMSNorm(d, device)
         # channel-mix
-        self.ck = L.DcimLinear(d, cfg.d_ff, cfg, dtype, device)
-        self.cv = L.DcimLinear(cfg.d_ff, d, cfg, dtype, device)
-        self.cr = L.DcimLinear(d, d, cfg, dtype, device)
+        self.ck = L.DcimLinear(d, cfg.d_ff, cfg, dtype, device,
+                               ("embed", "ff"))
+        self.cv = L.DcimLinear(cfg.d_ff, d, cfg, dtype, device,
+                               ("ff", "embed"))
+        self.cr = L.DcimLinear(d, d, cfg, dtype, device, ("embed", "heads"),
+                               out_ax="embed")
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -83,14 +88,15 @@ class Block(nn.Module):
         cd = x.dtype
         last = state["shift_t"] if state is not None else None
         xs = _shift(x, last)
-        r = self.wr(_lerp(x, xs, self.mu_r).to(cd), cd)
-        k = self.wk(_lerp(x, xs, self.mu_k).to(cd), cd)
-        v = self.wv(_lerp(x, xs, self.mu_v).to(cd), cd)
-        g = self.wg(_lerp(x, xs, self.mu_g).to(cd), cd)
-        xw = _lerp(x, xs, self.mu_w).to(cd)
-        lora = torch.matmul(torch.tanh(torch.matmul(xw, self.wA.to(cd))),
-                            self.wB.to(cd))
-        log_w = -torch.exp(torch.clamp(self.w0 + lora.to(torch.float32),
+        w = L.whole
+        r = self.wr(_lerp(x, xs, w(self.mu_r)).to(cd), cd)
+        k = self.wk(_lerp(x, xs, w(self.mu_k)).to(cd), cd)
+        v = self.wv(_lerp(x, xs, w(self.mu_v)).to(cd), cd)
+        g = self.wg(_lerp(x, xs, w(self.mu_g)).to(cd), cd)
+        xw = _lerp(x, xs, w(self.mu_w)).to(cd)
+        lora = torch.matmul(torch.tanh(torch.matmul(xw, w(self.wA).to(cd))),
+                            w(self.wB).to(cd))
+        log_w = -torch.exp(torch.clamp(w(self.w0) + lora.to(torch.float32),
                                        -8.0, 4.0))
 
         rq = r.reshape(b, t, h, dk)
@@ -98,11 +104,12 @@ class Block(nn.Module):
         vq = v.reshape(b, t, h, dk)
         lw = log_w.reshape(b, t, h, dk)
         if state is None:
-            y, s_fin = chunked_gla(rq, kq, vq, lw, u=self.u, inclusive=False,
-                                   chunk=cfg.ssm.chunk, remat=cfg.remat)
+            y, s_fin = chunked_gla(rq, kq, vq, lw, u=w(self.u),
+                                   inclusive=False, chunk=cfg.ssm.chunk,
+                                   remat=cfg.remat)
         else:
             yv, s_fin = gla_decode_step(rq[:, 0], kq[:, 0], vq[:, 0],
-                                        lw[:, 0], state["wkv"], u=self.u,
+                                        lw[:, 0], state["wkv"], u=w(self.u),
                                         inclusive=False)
             y = yv[:, None]
         new_state = {"shift_t": x[:, -1, :], "wkv": s_fin}
@@ -114,8 +121,8 @@ class Block(nn.Module):
         cd = x.dtype
         last = state["shift_c"] if state is not None else None
         xs = _shift(x, last)
-        xk = _lerp(x, xs, self.mu_ck).to(cd)
-        xr = _lerp(x, xs, self.mu_cr).to(cd)
+        xk = _lerp(x, xs, L.whole(self.mu_ck)).to(cd)
+        xr = _lerp(x, xs, L.whole(self.mu_cr)).to(cd)
         kk = torch.square(torch.relu(self.ck(xk, cd)))
         out = self.cv(kk, cd)
         out = out * torch.sigmoid(self.cr(xr, cd))
@@ -145,7 +152,8 @@ class RWKV6(L.ZooModel):
         self.blocks = nn.ModuleList(Block(cfg, dtype, dev)
                                     for _ in range(cfg.n_layers))
         self.ln_f = L.RMSNorm(cfg.d_model, dev)
-        self.unembed = L.Projection(cfg.d_model, cfg.vocab_padded, dtype, dev)
+        self.unembed = L.Projection(cfg.d_model, cfg.vocab_padded, dtype, dev,
+                                    ("embed", "vocab"))
 
     def forward_train(self, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:

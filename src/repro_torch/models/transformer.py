@@ -72,10 +72,11 @@ class Transformer(L.ZooModel):
         self.ln_f = L.RMSNorm(cfg.d_model, dev)
         self.unembed = (None if cfg.tie_embeddings else
                         L.Projection(cfg.d_model, cfg.vocab_padded, dtype,
-                                     dev))
+                                     dev, ("embed", "vocab")))
         self.frontend_proj = (None if cfg.frontend is None else
                               L.Projection(cfg.frontend.d_frontend,
-                                           cfg.d_model, dtype, dev))
+                                           cfg.d_model, dtype, dev,
+                                           ("embed_no_fsdp", "embed")))
         if cfg.encoder_layers > 0:
             self.enc_blocks = nn.ModuleList(
                 Block(cfg, dtype, dev) for _ in range(cfg.encoder_layers))

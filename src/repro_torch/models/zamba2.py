@@ -37,14 +37,16 @@ class MambaBlock(nn.Module):
         self.cfg = cfg
         self.ln = L.RMSNorm(d, device)
         self.in_proj = L.DcimLinear(d, 2 * di + 2 * s.state + nh, cfg, dtype,
-                                    device)
+                                    device, ("embed", "ff"))
         f32 = torch.float32
-        self.conv_w = L._empty((s.conv_kernel, di + 2 * s.state), f32, device)
-        self.A_log = L._empty((nh,), f32, device)
-        self.dt_bias = L._empty((nh,), f32, device)
-        self.D = L._empty((nh,), f32, device)
-        self.ln_y = L.RMSNorm(di, device)
-        self.out_proj = L.DcimLinear(di, d, cfg, dtype, device)
+        self.conv_w = L._empty((s.conv_kernel, di + 2 * s.state), f32, device,
+                               ("conv", "act_ff"))
+        self.A_log = L._empty((nh,), f32, device, ("act_heads",))
+        self.dt_bias = L._empty((nh,), f32, device, ("act_heads",))
+        self.D = L._empty((nh,), f32, device, ("act_heads",))
+        self.ln_y = L.RMSNorm(di, device, axis="act_ff")
+        self.out_proj = L.DcimLinear(di, d, cfg, dtype, device,
+                                     ("ff", "embed"))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -66,15 +68,17 @@ class MambaBlock(nn.Module):
         z, xbc, dtp = torch.split(proj, [di, di + 2 * s.state, nh], dim=-1)
 
         conv_cache = state["conv"] if state is not None else None
-        xbc, new_conv = causal_conv1d(xbc * torch.sigmoid(xbc), self.conv_w,
+        xbc, new_conv = causal_conv1d(xbc * torch.sigmoid(xbc),
+                                      L.whole(self.conv_w),
                                       conv_cache)
         xs, B, C = torch.split(xbc, [di, s.state, s.state], dim=-1)
 
         # SSD parameters: scalar decay per head, B/C shared across heads
         # (ngroups=1)
-        x = dtp.to(torch.float32) + self.dt_bias
+        x = dtp.to(torch.float32) + L.whole(self.dt_bias)
         dt = torch.logaddexp(x, torch.zeros_like(x))           # softplus
-        decay = -torch.exp(self.A_log)[None, None, :] * dt     # log a_t <= 0
+        # log a_t <= 0
+        decay = -torch.exp(L.whole(self.A_log))[None, None, :] * dt
 
         v = xs.reshape(b, t, nh, s.head_dim)                   # values
         k = B[:, :, None, :].expand(b, t, nh, s.state)
@@ -94,7 +98,8 @@ class MambaBlock(nn.Module):
                                           log_w[:, 0], state["ssd"],
                                           inclusive=True)
             y = yv[:, None]
-        y = y + v.to(y.dtype) * self.D[None, None, :, None]  # skip (D term)
+        # skip (D term)
+        y = y + v.to(y.dtype) * L.whole(self.D)[None, None, :, None]
         y = y.reshape(b, t, di)
         y = self.ln_y(y * (z * torch.sigmoid(z)))
         out = self.out_proj(y, cd)
@@ -123,7 +128,8 @@ class Zamba2(L.ZooModel):
                                    for _ in range(cfg.n_layers))
         self.shared_attn = AttnBlock(cfg, dtype, dev)     # ONE shared block
         self.ln_f = L.RMSNorm(cfg.d_model, dev)
-        self.unembed = L.Projection(cfg.d_model, cfg.vocab_padded, dtype, dev)
+        self.unembed = L.Projection(cfg.d_model, cfg.vocab_padded, dtype, dev,
+                                    ("embed", "vocab"))
 
     def forward_train(self, batch: dict
                       ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -15,6 +15,13 @@ stacked on a layer axis, so a per-layer norm gain there has rank 2 and
 decays.  ``adamw_update`` takes that decision per name (``decay``); the
 port's unstacked names get it from
 :func:`repro_torch.convert.reference_leaf_rank`.
+
+On a mesh of ranks the parameters, gradients and moments are DTensors of
+one placement per parameter (the moments mirror the parameters' specs,
+:func:`opt_specs_like`; ``count`` is replicated).  The update is
+elementwise, so each rank updates its own pieces; :func:`global_norm`
+sums the squares over the ranks, so the clip factor is the one-device
+one.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from dataclasses import dataclass
 from typing import Mapping
 
 import torch
+
+from ..parallel import collectives as C
+from ..parallel.zero import like, local as _local
 
 
 @dataclass(frozen=True)
@@ -34,26 +44,61 @@ class AdamWConfig:
     grad_clip: float = 1.0
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    if _is_dtensor(p):
+        return like(p, torch.float32)
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
 def adamw_init(params: Mapping[str, torch.Tensor]) -> dict:
-    """Zero float32 moments beside each parameter and an int32 ``count``,
-    on the parameters' device."""
+    """Zero float32 moments beside each parameter (DTensors of its
+    placements for a DTensor parameter) and an int32 ``count``, on the
+    parameters' device."""
     dev = next(iter(params.values())).device
     return {
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for k, p in params.items()},
+        "m": {k: _zeros_f32(p) for k, p in params.items()},
+        "v": {k: _zeros_f32(p) for k, p in params.items()},
         "count": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
 
+def opt_specs_like(param_specs):
+    """Specs for the optimizer state mirroring the parameters' specs; the
+    step ``count`` replicated."""
+    return {"m": param_specs, "v": param_specs, "count": ()}
+
+
+def _counted_here(t) -> bool:
+    """Whether this rank's piece of DTensor ``t`` is the one that counts
+    for the global norm: along every mesh axis that does not shard ``t``,
+    the ranks hold the same piece, and only the first counts it."""
+    mesh = t.device_mesh
+    return all(pl.is_shard() or mesh.get_local_rank(i) == 0
+               for i, pl in enumerate(t.placements))
+
+
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the float32 sum of every leaf's squares, leaf by leaf in the
-    mapping's order."""
+    mapping's order.  For DTensor leaves each rank sums its own pieces
+    (a piece that several ranks hold counted once) and the sum is
+    all-reduced over the mesh: the norm of the whole tensors."""
     total = None
+    mesh = None
     for leaf in tree.values():
-        sq = torch.sum(torch.square(leaf.to(torch.float32)))
+        sq = torch.sum(torch.square(_local(leaf).to(torch.float32)))
+        if _is_dtensor(leaf):
+            mesh = leaf.device_mesh
+            if not _counted_here(leaf):
+                sq = torch.zeros_like(sq)
         total = sq if total is None else total + sq
+    if mesh is not None:
+        for i in range(mesh.ndim):
+            C.all_reduce(total, mesh.get_group(i), "sum")
     return torch.sqrt(total)
 
 
@@ -84,14 +129,15 @@ def adamw_update(grads: Mapping[str, torch.Tensor], opt_state: dict,
     bc1 = 1 - torch.pow(_f32(cfg.b1, count), countf)
     bc2 = 1 - torch.pow(_f32(cfg.b2, count), countf)
     eps = _f32(cfg.eps, count)
-    for name, p in params.items():
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        g = grads[name].to(torch.float32) * scale
+    for name, param in params.items():
+        p = _local(param)
+        m, v = _local(opt_state["m"][name]), _local(opt_state["v"][name])
+        g = _local(grads[name]).to(torch.float32) * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)             # b1 m + (1-b1) g
         v.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         del g
         step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if (p.ndim >= 2) if decay is None else decay[name]:
+        if (param.ndim >= 2) if decay is None else decay[name]:
             step = step + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * step).to(p.dtype))
     opt_state["count"] = count

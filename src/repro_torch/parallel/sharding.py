@@ -1,4 +1,6 @@
-"""The compiler's device meshes: where the sharded engine
+"""The mesh rules and the compiler's device meshes.
+
+The first part is the compiler's meshes: where the sharded engine
 (:mod:`repro_torch.core.engine`, :mod:`repro_torch.core.shardspec`,
 :mod:`repro_torch.core.multihost`) places its stacked spec-lane axis.
 
@@ -19,11 +21,22 @@ rank and fills every row with the calling process's devices: row ``r``
 stands for rank ``r``'s devices, which are taken to be laid out like the
 caller's.  A process only ever runs on its own row
 (:mod:`repro_torch.core.multihost`).
+
+The second part is the models' distribution strategy (the JAX package's
+``repro/parallel/sharding.py``): the logical-axis rules
+(:data:`MESH_RULES`, :func:`rules_for_mesh`, :func:`logical_to_spec`), which
+read the axis names of either kind of mesh (a ``DeviceMesh``'s
+``mesh_dim_names``, a :class:`Mesh`'s ``axis_names``), the DTensor
+:func:`placements` a spec names, and the activation constraints
+(:func:`constrain_act`).  A spec is a tuple with one entry per tensor
+dimension, the reference's ``PartitionSpec``.
 """
 
 from __future__ import annotations
 
+import contextvars
 from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -103,3 +116,174 @@ def host_spec_mesh(devices=None, n_hosts: int | None = None) -> Mesh:
     if n_hosts < 1 or devs.size % n_hosts:
         n_hosts = 1            # ragged host split: fall back to one host row
     return Mesh(devs.reshape(n_hosts, -1), ("host", "spec"))
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis -> mesh-axis rules (the distribution strategy)
+# ---------------------------------------------------------------------------
+#
+# The reference's layout, 2-D FSDP x TP (GSPMD / ZeRO-3 style):
+#
+#   * ``embed`` (the d_model dim of weight matrices) -> ``data``: the FSDP
+#     axis; each block's weights are gathered whole just before use and
+#     their gradients reduced back onto the shards, so parameter and
+#     optimizer memory divide by |data|.
+#   * ``heads`` / ``ff`` / ``experts`` / ``vocab`` -> ``model``.  In the
+#     port this axis divides parameter and optimizer memory too; the
+#     weights are gathered whole, so activations are not sharded over it
+#     (true tensor parallelism is later work, ROADMAP.md).
+#   * ``batch`` -> ('pod', 'data'): data parallelism across pods.
+#   * ``kv_seq`` -> 'model' for long-context cached decode.
+#
+# ``layer`` (the reference's stacked per-layer axis) is never sharded; the
+# port keeps a parameter per block.  Alternative layouts are rule overrides
+# per arch config (``cfg.sharding_overrides``).
+
+MESH_RULES: dict[str, Any] = {
+    # weights
+    "embed": "data",          # FSDP / ZeRO-3 axis
+    "embed_no_fsdp": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "ff": "model",
+    "experts": "model",
+    "expert_ff": None,
+    "vocab": "model",
+    "layer": None,
+    "conv": None,
+    "state": None,
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    # KV caches carry (batch, kv_seq, cache_heads) together: batch takes the
+    # data axes, the cache sequence dim takes 'model', heads stay local
+    "kv_seq": "model",
+    "cache_heads": None,
+    "act_embed": None,
+    # K/V entering blockwise attention: gathered once per layer
+    "attn_kv_seq": None,
+    "act_heads": "model",
+    "act_ff": "model",
+    "act_vocab": "model",
+    # DCIM compiler sweeps: the stacked macro-spec axis of the multi-spec
+    # engine (repro_torch.core.shardspec), one lane per spec
+    "spec": "spec",
+}
+
+
+def mesh_axis_names(mesh) -> tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` (``mesh_dim_names``) or of the
+    compiler's :class:`Mesh` (``axis_names``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is None:
+        names = mesh.axis_names
+    return tuple(names)
+
+
+def rules_for_mesh(mesh, overrides: dict[str, Any] | None = None
+                   ) -> dict[str, Any]:
+    """:data:`MESH_RULES` with ``overrides`` merged in, and mesh axes the
+    mesh does not have dropped (e.g. 'pod' on the single-pod mesh): a
+    tuple keeps its axes that exist, one left is a plain name, none is
+    ``None``."""
+    names = set(mesh_axis_names(mesh))
+    out = {}
+    merged = dict(MESH_RULES)
+    if overrides:
+        merged.update(overrides)
+    for k, v in merged.items():
+        if isinstance(v, list):
+            v = tuple(v)
+        if isinstance(v, tuple):
+            kept = tuple(a for a in v if a in names)
+            out[k] = kept if len(kept) > 1 else (kept[0] if kept else None)
+        else:
+            out[k] = v if (v is None or v in names) else None
+    return out
+
+
+def logical_to_spec(axes: tuple[str | None, ...], rules: dict[str, Any]
+                    ) -> tuple:
+    """One entry per tensor dimension: ``None``, a mesh-axis name or a
+    tuple of them (the reference's ``PartitionSpec``)."""
+    return tuple(rules.get(a, None) if a is not None else None
+                 for a in axes)
+
+
+def shard_batch_spec(rules: dict[str, Any]) -> tuple:
+    return (rules.get("batch"), None)
+
+
+def placements(spec: tuple, mesh) -> list:
+    """DTensor placements on ``mesh`` (a ``DeviceMesh``) for ``spec``: one
+    per mesh dimension, ``Shard(d)`` where tensor dimension ``d``'s entry
+    names that mesh axis, else ``Replicate()``.  A dimension that names
+    several axes (``('pod', 'data')``) is sharded over each, the first
+    outermost, as the reference's ``NamedSharding`` splits it; so they
+    must come in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh_axis_names(mesh)
+    where: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else (entry or ())
+        order = [names.index(a) for a in axes if a in names]
+        if order != sorted(order):
+            raise ValueError(f"spec {spec}: axes {axes} are not in the "
+                             f"mesh's order {names}")
+        for a in axes:
+            if a in where:
+                raise ValueError(f"spec {spec} names mesh axis {a!r} twice")
+            where[a] = d
+    return [Shard(where[n]) if n in where else Replicate() for n in names]
+
+
+def with_sharding(x, mesh, spec: tuple):
+    """``x`` redistributed to ``spec`` on ``mesh`` when it is a DTensor;
+    a plain tensor is returned as it is (the reference's constraint is a
+    no-op outside a mesh context)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, placements(spec, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding constraints
+# ---------------------------------------------------------------------------
+
+_ACT_RULES: contextvars.ContextVar = contextvars.ContextVar("act_rules",
+                                                            default=None)
+
+
+def activation_rules(rules: dict[str, Any] | None):
+    """Set the ambient logical->mesh rules used by :func:`constrain_act`.
+    Returns a reset token for :func:`reset_activation_rules`."""
+    return _ACT_RULES.set(rules)
+
+
+def reset_activation_rules(token) -> None:
+    _ACT_RULES.reset(token)
+
+
+def constrain_act(x, axes: tuple[str | None, ...]):
+    """Constrain an activation to the ambient rules: a DTensor is
+    redistributed to the placements the rules name on its own mesh;
+    anything else, or any tensor when no rules are set or the rank does
+    not match, is returned unchanged.
+
+    On every path the port runs this returns its input: the sharded step
+    gathers each weight whole (:mod:`repro_torch.parallel.zero`), so the
+    activations at the models' call sites are plain tensors, and
+    ``act_shard`` (``launch.train --tuned``) changes nothing.  Only
+    DTensor activations, which true tensor parallelism would make, are
+    redistributed (DTensor's own collectives, which crash under gloo on
+    CUDA tensors: ROADMAP).  The rules are a context variable, so a block
+    rematerialised on an autograd thread sees none; that changes nothing
+    while the constraint is the identity."""
+    rules = _ACT_RULES.get()
+    if rules is None or len(axes) != x.ndim:
+        return x
+    return with_sharding(x, getattr(x, "device_mesh", None),
+                         logical_to_spec(axes, rules))

@@ -1,5 +1,5 @@
-"""Training of the port's models on one device (the JAX package's
-``repro.train``)."""
+"""Training of the port's models, on one device or over a mesh of ranks
+(the JAX package's ``repro.train``)."""
 
 from .step import AUX_COEF, init_train_state, make_loss_fn, make_train_step
 

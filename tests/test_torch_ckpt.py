@@ -396,11 +396,15 @@ class TestLaunchers:
         loss, gnorm = steps_of(again)[3]
         assert np.isfinite(float(loss)) and np.isfinite(float(gnorm))
 
-    def test_mesh_rule(self):
-        assert serve_launch.make_host_mesh((4, 2), n_devices=1) == {
+    def test_mesh_rule(self, monkeypatch):
+        assert serve_launch.make_host_mesh((4, 2)) == {
             "data": 1, "model": 1}
-        with pytest.raises(NotImplementedError, match="queue 1, item 8c"):
-            serve_launch.make_host_mesh((1, 2), n_devices=2)
+        # a mesh of more than one rank needs a process group that it fills
+        # (tests/test_torch_scaleout.py runs the launcher over ranks)
+        from repro_torch.launch import mesh
+        monkeypatch.setattr(mesh, "world_size", lambda: 4)
+        with pytest.raises(ValueError, match="process group holds 4"):
+            serve_launch.make_host_mesh((1, 2))
 
     def test_mesh_wider_than_the_cpu_shrinks(self, capsys, tmp_path):
         launch.main(["--arch", "llama3.2-3b", "--smoke", "--steps", "1",

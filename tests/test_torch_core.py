@@ -516,7 +516,14 @@ class TestImportHygiene:
                     "src/repro_torch/ckpt/failures.py",
                     "src/repro_torch/launch/train.py",
                     "examples/torch_train_lm_dcim.py",
-                    "examples/torch_fault_tolerance_drill.py"):
+                    "examples/torch_fault_tolerance_drill.py",
+                    "src/repro_torch/parallel/logical.py",
+                    "src/repro_torch/parallel/zero.py",
+                    "src/repro_torch/parallel/collectives.py",
+                    "src/repro_torch/optim/compression.py",
+                    "src/repro_torch/ckpt/elastic.py",
+                    "src/repro_torch/launch/mesh.py",
+                    "src/repro_torch/launch/specs.py"):
             assert rel in PORT_FILES
 
     @pytest.mark.parametrize("rel", PORT_FILES)

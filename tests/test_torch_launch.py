@@ -165,20 +165,20 @@ class TestMesh:
                                               ("pod", "data", "model"))
 
     def test_shrinks_to_the_device_count(self):
-        # the reference's rule (launch/mesh.py): a mesh wider than the
-        # visible devices becomes (1, ..., n_devices)
-        assert launch.make_host_mesh((4, 4), n_devices=1) == \
-            {"data": 1, "model": 1}
-        assert launch.make_host_mesh((1, 1), n_devices=2) == \
-            {"data": 1, "model": 1}
+        # the reference's rule (launch/mesh.py) over the ranks: a mesh
+        # wider than the world (1 without a process group) becomes
+        # (1, ..., world)
+        assert launch.make_host_mesh((4, 4)) == {"data": 1, "model": 1}
+        assert launch.make_host_mesh((1, 1)) == {"data": 1, "model": 1}
 
     @pytest.mark.parametrize("shape", ((1, 2), (2, 1), (4, 4)))
-    def test_more_than_one_device_raises(self, shape):
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            launch.make_host_mesh(shape, n_devices=2)
-
-    def test_device_count(self):
-        assert launch.device_count(torch.device("cpu")) == 1
+    def test_more_than_one_device_raises(self, shape, monkeypatch):
+        # a mesh of more than one rank that does not fill the group
+        from repro_torch.launch import mesh
+        world = 2 * shape[0] * shape[1]
+        monkeypatch.setattr(mesh, "world_size", lambda: world)
+        with pytest.raises(ValueError, match=f"process group holds {world}"):
+            launch.make_host_mesh(shape)
 
     def test_mesh_flag_on_the_cpu_shrinks(self, capsys):
         launch.main(["--arch", "qwen3-4b", "--smoke", "--device", "cpu",
