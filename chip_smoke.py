@@ -207,7 +207,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
                phase's one-device launch.  (a), (c) and (d)'s save share
                one group of 4 ranks.  No hand-written kernel runs here:
                the reference's scale-out path calls none;
- 13. report    one ``{"kernels": [...]}`` line, then as the last line
+ 13. dryrun    the dry run (``repro_torch.launch.dryrun``: the port's
+               step traced on meta tensors for rank 0 of a fake process
+               group, nothing run on the card) held against what the card
+               measured in this run: (a) the train phase's one-device cell
+               (llama3.2-3b at full width, 4 x 512 tokens, 2 microbatches):
+               the predicted peak memory within DRYRUN_MEM of the train
+               phase's measured peak, the dry run's roofline terms printed
+               beside the measured ms per step and busy share; (b) the
+               scale phase's 2x2 cell: the bytes handed to the collectives
+               per rank per step equal to the launcher's ``mesh:`` line for
+               every rank, the predicted peak within DRYRUN_MEM of each
+               rank's; (c) ``python -m repro_torch.launch.dryrun --arch
+               qwen3-4b --shape decode_32k --mesh single`` (256 ranks) as a
+               subprocess: its record ``ok``, printed with its trace time.
+               It launches no hand-written kernel;
+ 14. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
 Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
@@ -2515,10 +2530,12 @@ def _train_smoke(arch: str) -> None:
         f"{worst['p']:.3g}, m {worst['m']:.3g}, v {worst['v']:.3g}")
 
 
-def _train_full_width(card: str, work: Path) -> float:
+def _train_full_width(card: str, work: Path) -> dict:
     """(b): llama3.2-3b at full width through the launcher (gated on its
     printed losses), then the same run in this process, timed and traced.
-    Returns step 0's loss."""
+    Returns step 0's loss (``loss0``), the peak device memory (``peak``,
+    and ``held`` before the run), the mean ms per step and the traced
+    step's busy share."""
     import math
     import re
 
@@ -2612,7 +2629,8 @@ def _train_full_width(card: str, work: Path) -> float:
         f"{mean_ms / max(bound6, adam_ms):.1f}x it")
     del model, opt, m, step
     torch.cuda.empty_cache()
-    return losses[0]
+    return {"loss0": losses[0], "peak": peak, "held": held,
+            "ms": mean_ms, "busy": busy / wall1}
 
 
 def _train_drill() -> None:
@@ -2641,9 +2659,9 @@ def _train_drill() -> None:
         f"{time.perf_counter() - t0:.3f} s")
 
 
-def phase_train() -> float:
-    """The training path on the card (module doc, phase 11); returns the
-    full-width run's step-0 loss."""
+def phase_train() -> dict:
+    """The training path on the card (module doc, phase 11); returns what
+    the full-width run measured (:func:`_train_full_width`)."""
     import shutil
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2658,9 +2676,9 @@ def phase_train() -> float:
         _train_smoke(arch)
     log(f"train: ten smoke configs, card against CPU: "
         f"{time.perf_counter() - t0:.3f} s")
-    loss0 = _train_full_width(card, work)
+    measured = _train_full_width(card, work)
     _train_drill()
-    return loss0
+    return measured
 
 
 # ---------------------------------------------------------------------------
@@ -2843,9 +2861,11 @@ def _on_ranks(whats: list[str], world: int, work: Path) -> dict:
     return {w: json.loads((work / f"{w}.json").read_text()) for w in whats}
 
 
-def phase_scale(train_loss0: float, serve_sample: list[int]) -> None:
+def phase_scale(train_loss0: float, serve_sample: list[int]) -> dict:
     """Scale-out on the card (module doc, phase 12): several ranks on the
-    one card in gloo groups."""
+    one card in gloo groups.  Returns what the 2x2 run's ``mesh:`` line
+    printed: each rank's peak device memory (``peaks``) and collective
+    bytes per step (``bytes``), and the ms per step (``ms``)."""
     import math
     import re
     import shutil
@@ -2911,6 +2931,11 @@ def phase_scale(train_loss0: float, serve_sample: list[int]) -> None:
               share.split("share held per rank ")[1].strip("[]").split(",")]
     check(len(shares) == SCALE_RANKS and all(x == 0.25 for x in shares),
           f"scale: the leaves sharded over both axes: {share}")
+    meshline = next(ln for ln in lines if ln.startswith("mesh: ms per step"))
+    lists = [json.loads(m) for m in re.findall(r"\[[^\]]*\]", meshline)]
+    mesh_run = {"ms": lists[0], "peaks": lists[1], "bytes": lists[2]}
+    check(len(mesh_run["peaks"]) == len(mesh_run["bytes"]) == SCALE_RANKS,
+          f"scale: the 2x2 run's mesh line: {meshline}")
     log(f"scale: launch.train {TRAIN_ARCH} full width on a {SCALE_MESH} "
         f"mesh of {SCALE_RANKS} ranks on {card}: step 0's loss "
         f"{printed[0]} against the one-device {train_loss0!r} (rel "
@@ -2978,6 +3003,103 @@ def phase_scale(train_loss0: float, serve_sample: list[int]) -> None:
         f"{MODEL_PROMPT}, {SCALE_SERVE_DECODE} decode steps: row 0's "
         f"tokens {got} == the model phase's one-device launch; {wall:.3f} s "
         f"with start-up")
+    return mesh_run
+
+
+# ---------------------------------------------------------------------------
+# 13. dryrun
+# ---------------------------------------------------------------------------
+
+# (a) and (b): the dry run's peak memory per rank within DRYRUN_MEM
+# (relative) of what the train and scale phases measured on the card
+DRYRUN_MEM = 0.10
+# (c): one production cell, traced on the card's host
+DRYRUN_CELL = ("qwen3-4b", "decode_32k", "single")
+
+
+def _dryrun_terms(rec: dict) -> str:
+    from repro_torch.roofline.report import roofline_terms
+
+    r = roofline_terms(rec)
+    return (f"t_compute {r['t_c'] * 1e3:.3f} ms, t_memory "
+            f"{r['t_m'] * 1e3:.3f} ms, t_collective {r['t_x'] * 1e3:.3f} ms,"
+            f" bound {r['bound_s'] * 1e3:.3f} ms ({r['dom']})")
+
+
+def phase_dryrun(train: dict, mesh_run: dict) -> None:
+    """The dry run against the card (module doc, phase 13)."""
+    import os
+
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.dryrun import run_cell
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"dryrun: {card}; every cell is traced on meta tensors in this "
+        f"process (rank 0 of a fake process group): nothing runs on the "
+        f"card")
+    shape = ShapeCfg(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                     TRAIN_BATCH, "train")
+
+    # -- (a) the train phase's one-device cell -----------------------------
+    t0 = time.perf_counter()
+    one = run_cell(TRAIN_ARCH, shape, (1, 1), microbatches=TRAIN_MICRO)
+    t_one = time.perf_counter() - t0
+    pred = one["memory"]["total_bytes"]
+    got = train["peak"] - train["held"]
+    rel = abs(pred - got) / got
+    log(f"dryrun: (a) {TRAIN_ARCH} full width on one device, "
+        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches: "
+        f"predicted peak {pred} bytes ({one['memory']['argument_size_in_bytes']}"
+        f" of arguments), measured {got} (max_memory_allocated "
+        f"{train['peak']} less {train['held']} held before): rel {rel:.4f}; "
+        f"traced in {t_one:.3f} s")
+    log(f"dryrun: (a) {_dryrun_terms(one)}; measured on {card}: "
+        f"{train['ms']:.3f} ms per step, device busy {train['busy']:.1%} of "
+        f"a traced step")
+    check(rel <= DRYRUN_MEM, f"dryrun: (a) predicted peak {pred}, measured "
+          f"{got} (rel {rel:.4f} > {DRYRUN_MEM})")
+
+    # -- (b) the scale phase's 2x2 cell ------------------------------------
+    t0 = time.perf_counter()
+    four = run_cell(TRAIN_ARCH, shape, (2, 2), microbatches=TRAIN_MICRO)
+    t_four = time.perf_counter() - t0
+    handed = four["cost"]["coll_in_bytes_per_device"]
+    pred = four["memory"]["total_bytes"]
+    rels = [abs(pred - p) / p for p in mesh_run["peaks"]]
+    log(f"dryrun: (b) {TRAIN_ARCH} on 2x2: bytes handed to the collectives "
+        f"per rank per step {int(handed)}, the launcher's {mesh_run['bytes']};"
+        f" predicted peak per rank {pred}, measured {mesh_run['peaks']} (rel "
+        f"{[round(r, 4) for r in rels]}); traced in {t_four:.3f} s")
+    log(f"dryrun: (b) {_dryrun_terms(four)}; measured ms per step "
+        f"{mesh_run['ms']} (gloo through host memory, one card)")
+    check(all(b == handed for b in mesh_run["bytes"]),
+          f"dryrun: (b) bytes per rank {mesh_run['bytes']}, dry run "
+          f"{handed}")
+    check(max(rels) <= DRYRUN_MEM, f"dryrun: (b) predicted peak {pred}, "
+          f"measured {mesh_run['peaks']}")
+
+    # -- (c) one production cell through the command line ------------------
+    arch, shp, mk = DRYRUN_CELL
+    out = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shp, "--mesh", mk, "--out", str(out)],
+        capture_output=True, text=True, timeout=600, cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dryrun: (c) {DRYRUN_CELL} failed: "
+          f"{proc.stderr[-3000:]}")
+    rec = json.loads((out / f"{arch}__{shp}__{mk}.json").read_text())
+    check(rec.get("ok") is True and rec["devices"] == 256,
+          f"dryrun: (c) the record: {rec}")
+    log(f"dryrun: (c) {arch} {shp} on the {mk} mesh ({rec['devices']} "
+        f"ranks): ok, traced in {rec['trace_s']} s ({wall:.3f} s with "
+        f"start-up); record {json.dumps(rec)}")
+    log(f"dryrun: (c) {_dryrun_terms(rec)}")
 
 
 def main() -> int:
@@ -3018,16 +3140,19 @@ def main() -> int:
     t9 = time.perf_counter()
     serve_sample = phase_model(pick, artifact)
     t10 = time.perf_counter()
-    train_loss0 = phase_train()
+    train = phase_train()
     t11 = time.perf_counter()
-    phase_scale(train_loss0, serve_sample)
+    mesh_run = phase_scale(train["loss0"], serve_sample)
     t12 = time.perf_counter()
+    phase_dryrun(train, mesh_run)
+    t13 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"shard {t2b - t2:.3f} s, mac {t3 - t2b:.3f} s, csa {t4 - t3:.3f} s, "
         f"ssm {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
         f"{t7 - t6:.3f} s, serving {t8 - t7:.3f} s, service "
         f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s, train "
-        f"{t11 - t10:.3f} s, scale {t12 - t11:.3f} s")
+        f"{t11 - t10:.3f} s, scale {t12 - t11:.3f} s, dryrun "
+        f"{t13 - t12:.3f} s")
     check(all(k["launches"] > 0 for k in kernels),
           f"a kernel was not launched on its main path: "
           f"{[k['name'] for k in kernels if not k['launches']]}")

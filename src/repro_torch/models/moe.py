@@ -12,14 +12,17 @@ its call sites (:func:`~repro_torch.parallel.sharding.constrain_act`).
 
 Over batch ranks (:func:`repro_torch.parallel.zero.data_parallel`, which
 the sharded train step and the sharded serving launcher enter) each rank
-groups its own tokens.  They are the reference's groups of the global
-token order only when a rank holds a multiple of ``MOE_GROUP`` tokens.
-Otherwise a group would span ranks: without gradients (serving) every
-rank gathers the batch ranks' tokens, runs the layer on the global batch
-and keeps its own rows, which is exact; with gradients (training) the
-layer raises ``ValueError``.  The load-balance loss's ``density`` and
-``p_mean`` are averaged over the batch ranks before their product, so it
-is the global one.
+groups its own tokens when it holds a multiple of ``MOE_GROUP`` tokens:
+those are the reference's groups of the global token order, and the
+load-balance loss's ``density`` and ``p_mean`` are averaged over the
+batch ranks before their product, so it is the global one.  Otherwise a
+group would span ranks, and every rank gathers the batch ranks' tokens
+(:func:`repro_torch.parallel.zero.dp_all_rows`), runs the layer on the
+global batch and keeps its own rows, in serving and in training alike.
+The load-balance loss then comes from the global groups on every rank and
+is not averaged again.  The gather's backward brings each rank's rows'
+gradients back to it, summed over the batch ranks, so the sharded step
+computes the one-device gradients (:mod:`repro_torch.parallel.zero`).
 
 The model is the port's :class:`~repro_torch.models.transformer.Transformer`
 with each block's MLP replaced by :class:`MoeMlp`; ``forward_train``
@@ -28,13 +31,15 @@ returns the mean of the blocks' load-balance losses beside the logits.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 from torch import nn
 
 from ..parallel.sharding import constrain_act
-from ..parallel.zero import dp_all_rows, dp_mean, dp_size_now
+from ..parallel.zero import (dp_all_rows, dp_mean, dp_size_now,
+                             single_batch_rank)
 from ..quant import fake_quant
 from . import layers as L
 from .transformer import Transformer
@@ -113,19 +118,15 @@ class MoeMlp(nn.Module):
         ranks, the global batch's (module doc)."""
         b, s, _ = x.shape
         if dp_size_now() > 1 and (b * s) % MOE_GROUP:
-            if torch.is_grad_enabled():
-                raise ValueError(
-                    f"MoE token groups of {MOE_GROUP} would span data "
-                    f"ranks: this rank holds {b * s} tokens ({b} x {s}), "
-                    f"not a multiple of {MOE_GROUP}; give each batch rank "
-                    f"a multiple of {MOE_GROUP} tokens per microbatch")
             xs, first = dp_all_rows(x)
-            y, aux = self._grouped(xs)
+            y, aux = self._grouped(xs, groups_global=True)
             return y[first:first + b], aux
         return self._grouped(x)
 
-    def _grouped(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The layer on the tokens of ``x`` in groups of ``MOE_GROUP``."""
+    def _grouped(self, x: torch.Tensor, groups_global: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The layer on the tokens of ``x`` in groups of ``MOE_GROUP``
+        (``groups_global``: ``x`` is the global batch)."""
         cd = x.dtype
         b, s, d = x.shape
         e, k = self.cfg.moe.n_experts, self.cfg.moe.top_k
@@ -142,7 +143,10 @@ class MoeMlp(nn.Module):
                               L.whole(self.router).to(torch.float32))
         gates = torch.softmax(logits, dim=-1)
         cap = max(1, int(math.ceil(sg * k / e * self.cfg.moe.capacity_factor)))
-        dispatch, combine, aux = _top_k_dispatch(gates, k, cap)
+        # global groups: their aux is the global one already
+        with single_batch_rank() if groups_global else \
+                contextlib.nullcontext():
+            dispatch, combine, aux = _top_k_dispatch(gates, k, cap)
 
         # dispatch: (G,Sg,E,C) x (G,Sg,d) -> (E,G,C,d)
         xin = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), xg)

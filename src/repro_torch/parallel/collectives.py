@@ -6,6 +6,10 @@ Every collective of the scale-out path goes through this module:
 :func:`all_reduce` (sum or max) and :func:`broadcast`.  Each call adds the
 bytes this rank hands in to ``TRAFFIC[op]`` and one to ``CALLS[op]``, so a
 caller reads what one step moved (:func:`reset_counts`, then the counters).
+Within :func:`recording` each counted call also appends ``(op, bytes
+handed in, group size, dtype)`` to a call log, from which the dry run
+(:mod:`repro_torch.roofline.op_cost`) takes each collective's ring
+traffic.
 
 The backend is the process group's, chosen by the launcher's flag; a
 collective the backend cannot run raises, and nothing here tries another
@@ -21,6 +25,7 @@ dtypes the scale-out path hands them.
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 
 import torch
@@ -32,15 +37,34 @@ OPS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce_sum",
 TRAFFIC: Counter = Counter()      # bytes handed in, per collective
 CALLS: Counter = Counter()        # calls, per collective
 
+# the active call log, or None.  A process global, as the batch axes of
+# ``parallel.zero``: a backward's collectives run on autograd threads.
+_LOG: list = [None]
+
 
 def reset_counts() -> None:
     TRAFFIC.clear()
     CALLS.clear()
 
 
-def _count(op: str, t: torch.Tensor) -> None:
-    TRAFFIC[op] += t.numel() * t.element_size()
+@contextlib.contextmanager
+def recording():
+    """Within the block, every counted call also appends ``(op, bytes
+    handed in, group size, dtype name)`` to the list it yields."""
+    prev, log = _LOG[0], []
+    _LOG[0] = log
+    try:
+        yield log
+    finally:
+        _LOG[0] = prev
+
+
+def _count(op: str, t: torch.Tensor, n: int) -> None:
+    nbytes = t.numel() * t.element_size()
+    TRAFFIC[op] += nbytes
     CALLS[op] += 1
+    if _LOG[0] is not None:
+        _LOG[0].append((op, nbytes, n, str(t.dtype).removeprefix("torch.")))
 
 
 def _size(group) -> int:
@@ -56,7 +80,7 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    _count("all_gather_into_tensor", src)
+    _count("all_gather_into_tensor", src, n)
     dist.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim)
 
@@ -73,7 +97,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                          f"{src.shape[0]} does not split {n} ways")
     out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
                       device=t.device)
-    _count("reduce_scatter_tensor", src)
+    _count("reduce_scatter_tensor", src, n)
     dist.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim)
 
@@ -82,19 +106,21 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum"
                ) -> torch.Tensor:
     """``t`` reduced in place over the group (``op``: ``sum`` or ``max``);
     returns ``t``."""
-    if _size(group) == 1:
+    n = _size(group)
+    if n == 1:
         return t
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    _count(f"all_reduce_{op}", t)
+    _count(f"all_reduce_{op}", t, n)
     dist.all_reduce(t, red, group=group)
     return t
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     """``t`` overwritten in place by global rank ``src``'s; returns ``t``."""
-    if _size(group) == 1:
+    n = _size(group)
+    if n == 1:
         return t
-    _count("broadcast", t)
+    _count("broadcast", t, n)
     dist.broadcast(t, src, group=group)
     return t
 

@@ -20,8 +20,14 @@ to the order of the gradient sum.
 :func:`data_parallel` sets the batch axes for a train step or a serving
 launch; :func:`dp_mean` averages a tensor over them (the global loss, the
 MoE load-balance statistics) and :func:`dp_all_rows` gathers the global
-batch (MoE token groups that span ranks).  Tensor dimensions split evenly over the mesh axes that shard
-them; an uneven split raises.
+batch (MoE token groups that span ranks).  That gather has a backward, a
+reduce-scatter sum of the gathered rows' gradient onto the ranks that hold
+them, so a train step over such groups computes the one-device gradients:
+each rank's loss reads only its own rows of the layer's output, and what
+every rank computes alike (the global groups' load-balance loss) comes
+back summed once per batch rank, which the batch-rank mean of the
+parameter gradients divides out.  Tensor dimensions split evenly over the
+mesh axes that shard them; an uneven split raises.
 """
 
 from __future__ import annotations
@@ -54,6 +60,20 @@ def data_parallel(mesh, axes: tuple[str, ...]):
     """Within the block, :func:`whole`'s backward averages gradients over
     ``mesh``'s ``axes`` and :func:`dp_mean` averages over them."""
     prev, _AMBIENT[0] = _AMBIENT[0], (mesh, tuple(axes))
+    try:
+        yield
+    finally:
+        _AMBIENT[0] = prev
+
+
+@contextlib.contextmanager
+def single_batch_rank():
+    """Within the block, :func:`dp_mean` and :func:`dp_size_now` see one
+    batch rank: for work on rows that are already the global batch's.
+    Weights gathered by :func:`whole` inside it would reduce their
+    gradients over the default batch axes, so only work without them
+    belongs here."""
+    prev, _AMBIENT[0] = _AMBIENT[0], None
     try:
         yield
     finally:
@@ -100,13 +120,34 @@ def dp_size_now() -> int:
     return 1 if amb is None else dp_size(*amb)
 
 
+class _AllRows(torch.autograd.Function):
+    """Every batch rank's rows; the backward sums the gathered rows'
+    gradient over the batch ranks onto each rank's own rows (a
+    reduce-scatter, the all-gather's adjoint)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return gather_rows(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        # gather_rows gathers the innermost axis first: undo it outermost
+        # first
+        for i in _dims(ctx.mesh, ctx.axes):
+            g = C.reduce_scatter(g, ctx.mesh.get_group(i), 0)
+        return g, None, None
+
+
 def dp_all_rows(x: torch.Tensor) -> tuple[torch.Tensor, int]:
     """Every ambient batch rank's rows of ``x`` (leading dimension) in
-    batch-rank order, the global batch's (no autograd), and the index of
-    this rank's first row in it."""
+    batch-rank order, the global batch's, and the index of this rank's
+    first row in it.  The gradient of the gathered rows comes back to
+    the rank that holds them, summed over the batch ranks
+    (:class:`_AllRows`)."""
     mesh, axes = _AMBIENT[0]
-    with torch.no_grad():
-        return gather_rows(x, mesh, axes), dp_rank(mesh, axes) * x.shape[0]
+    return _AllRows.apply(x, mesh, axes), dp_rank(mesh, axes) * x.shape[0]
 
 
 def dp_mean(x: torch.Tensor) -> torch.Tensor:

@@ -460,7 +460,8 @@ PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
     + ["chip_smoke.py", "scripts/torch_profile_kernels.py",
        "scripts/torch_warm_cache.py", "examples/torch_quickstart.py",
        "examples/torch_serve_decode.py", "examples/torch_train_lm_dcim.py",
-       "examples/torch_fault_tolerance_drill.py"]
+       "examples/torch_fault_tolerance_drill.py",
+       "examples/torch_pareto_sweep.py", "scripts/torch_make_experiments.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -523,7 +524,14 @@ class TestImportHygiene:
                     "src/repro_torch/optim/compression.py",
                     "src/repro_torch/ckpt/elastic.py",
                     "src/repro_torch/launch/mesh.py",
-                    "src/repro_torch/launch/specs.py"):
+                    "src/repro_torch/launch/specs.py",
+                    "src/repro_torch/launch/dryrun.py",
+                    "src/repro_torch/launch/tuned.py",
+                    "src/repro_torch/roofline/op_cost.py",
+                    "src/repro_torch/roofline/report.py",
+                    "src/repro_torch/roofline/reanalyze.py",
+                    "examples/torch_pareto_sweep.py",
+                    "scripts/torch_make_experiments.py"):
             assert rel in PORT_FILES
 
     @pytest.mark.parametrize("rel", PORT_FILES)

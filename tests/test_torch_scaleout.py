@@ -25,9 +25,11 @@ compressed all-reduce under ``shard_map`` over the ``pod`` axis of a (2, 4)
   within ``NORM_TOL`` relative.  These hold where every int8 code agrees:
   the last-axis rows of each rank's fake-quant codes (one token's codes,
   or a weight's, gathered whole) must all be rows the one-device step
-  quantized.  A MoE train batch whose 256-token groups would span data
-  ranks raises ``ValueError``; served over them (no gradients), granite's
-  logits equal one device's within ``GRAD_TOL`` of the largest.
+  quantized.  A MoE train batch whose 256-token groups span the data
+  ranks (granite-moe-1b-a400m at 4 x 64, 128 tokens per data rank) equals
+  one device's step under the same rules; served over them (no
+  gradients), granite's logits equal one device's within ``GRAD_TOL`` of
+  the largest.
 * **Compression**: ``compressed_all_reduce_tree`` over the 2-rank pod
   groups of 8 ranks equals the reference's ``shard_map`` result bit for
   bit, mean and new error, on the same N(0, 0.01) gradients from
@@ -73,6 +75,9 @@ FLIP_LOSS = 1e-3         # relative, a loss from a step with a code flip on
 B8, S8, STEPS8 = 8, 32, 8
 B4, S4 = 4, 128
 MOE_SERVE = "granite-moe-3b-a800m"     # served over 2 batch ranks
+# trained on (2, 2) at 4 x 64: 128 tokens per data rank, so every 256-token
+# MoE group spans both data ranks
+MOE_SPAN, SPAN = "granite-moe-1b-a400m", (4, 64)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -360,17 +365,22 @@ def four(rank, world, work):
                      "aux": float(m["aux"]), "loss": float(m["loss"]),
                      "rows": sorted(rows)}
 
-    # a MoE batch whose 256-token groups would span the data ranks
-    cfg = smoke_config("granite-moe-1b-a400m")
+    # a MoE batch whose 256-token groups span the data ranks
+    cfg = smoke_config(MOE_SPAN)
     api = get_model(cfg)
     model, opt = init_train_state(api, torch.Generator().manual_seed(0),
                                   device="cpu", mesh=mesh)
-    try:
-        make_train_step(api, constant_lr(1e-3), mesh=mesh)(
-            model, opt, corpus_of(cfg, 4, 64).batch(0))
-        out["span"] = "no error"
-    except ValueError as e:
-        out["span"] = str(e)
+    rows = set()
+    undo = code_rows(rows)
+    model, opt, m = make_train_step(api, constant_lr(1e-3), mesh=mesh)(
+        model, opt, corpus_of(cfg, *SPAN).batch(0))
+    undo()
+    moments = {n: full_value(t).numpy() for n, t in opt["m"].items()}
+    if rank == 0:
+        np.savez(work / "m_span.npz", **moments)
+    out["span"] = {"grad_norm": float(m["grad_norm"]),
+                   "aux": float(m["aux"]), "loss": float(m["loss"]),
+                   "rows": sorted(rows)}
 
     # a MoE served over the batch ranks: its token groups span them
     from repro_torch.models import model_class
@@ -488,7 +498,8 @@ def _drill(reference, what: str, world: int) -> list[dict]:
         script.write_text(
             f"BATCH, SEQ, STEPS, B4, S4 = {B8}, {S8}, {STEPS8}, {B4}, {S4}\n"
             "SPEC = {'w': ('data', 'model'), 'b': ('data',)}\n"
-            f"MOE_SERVE = {MOE_SERVE!r}\n"
+            f"MOE_SERVE, MOE_SPAN, SPAN = {MOE_SERVE!r}, {MOE_SPAN!r}, "
+            f"{SPAN!r}\n"
             + DRILL_SCRIPT)
     r = subprocess.run([sys.executable, str(script), what, str(world),
                         str(work)], capture_output=True, text=True,
@@ -687,9 +698,38 @@ class TestShardedAgainstOneDevice:
         with pytest.raises(ValueError, match="placed on it"):
             step(model, opt, corpus_of(cfg, 2, 8).batch(0))
 
-    def test_moe_groups_spanning_ranks_raise(self, four):
-        assert all("would span data ranks" in r["span"] for r in four)
-        assert "128 tokens" in four[0]["span"]
+    def test_moe_groups_spanning_ranks_raise(self, four, reference):
+        """They no longer raise: a train step whose 256-token groups span
+        the data ranks equals one device's step from the same parameters
+        and batch, under the rules of :meth:`test_step0_equals_one_device`
+        (the ranks compute the global groups, and the gather's backward
+        returns each rank's rows' gradients to it)."""
+        cfg = smoke_config(MOE_SPAN)
+        api = get_model(cfg)
+        model, opt = init_train_state(api, torch.Generator().manual_seed(0),
+                                      device="cpu")
+        rows = set()
+        undo = _code_rows(rows)
+        try:
+            _, opt, m = make_train_step(api, constant_lr(1e-3))(
+                model, opt, corpus_of(cfg, *SPAN).batch(0))
+        finally:
+            undo()
+        assert SPAN[0] * SPAN[1] // 2 % 256, "the groups must span ranks"
+        for r in four:
+            got = r["span"]
+            assert set(got["rows"]) <= rows, "a code differs"
+            assert rel(got["grad_norm"], m["grad_norm"]) <= NORM_TOL
+            assert abs(got["aux"] - float(m["aux"])) <= \
+                NORM_TOL * max(abs(float(m["aux"])), 1e-30)
+            assert rel(got["loss"], m["loss"]) <= NORM_TOL
+        with np.load(reference["work"] / "m_span.npz") as got:
+            assert set(got.files) == set(opt["m"])
+            for name, want in opt["m"].items():
+                want = want.numpy()
+                scale = max(float(np.abs(want).max()), 1e-30)
+                assert float(np.abs(got[name] - want).max()) <= \
+                    GRAD_TOL * scale, name
 
     def test_moe_served_over_batch_ranks_equals_one_device(self, four,
                                                            reference):
