@@ -20,10 +20,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. compiler  the compiler's batched main path on the four scenario specs
                at the full registered lattice (155,520 points per spec):
                ``mso_search_many`` and ``design_space_sweep_many(...)
-               .frontier_indices()`` on the card, held bit for bit against
-               the same calls with ``device="cpu"`` and the search results
-               against the scalar oracle; the bounds of its two device
-               kernels (A1 roll-up, A2 frontier masks);
+               .frontier_indices()`` on the card, through its two CUDA
+               kernels (A1 ``lattice_rollup``, one launch per spec group;
+               A2 ``pareto_dominated``, one per frontier; their launch
+               counts set to 0 before and read after), held bit for bit
+               against the same calls with ``device="cpu"`` (the kernels'
+               plain versions) and the search results against the scalar
+               oracle; the sweep and the frontiers traced again, their
+               device busy split into kernels and copies; the dominance
+               kernel held against its plain version on the card on the
+               edge sets of ``tests/torch_dominance_cases.py``; each
+               kernel held against and timed beside its plain version on
+               the main path's inputs (A2: the calls of the counted run,
+               recorded as it makes them), with its bound;
   2b. shard    the sharded compiler engine on the card's mesh
                (``spec_sweep_mesh()``, every visible card) and on four
                entries of card 0 (``["cuda:0"] * 4``): a 130-spec request
@@ -35,9 +44,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
                ragged drill in jit, pmap and multihost on four entries
                equal to the unsharded pass; A3, the sharded frontier mask,
                through ``design_space_sweep_many_sharded`` of the four
-               scenario specs on both meshes, its frontiers equal to the
-               compiler phase's, traced (device busy and kernels beside
-               A2's) and its bound from the pairs its two phases compare;
+               scenario specs on both meshes (the ``pareto_dominated``
+               kernel, one phase-1 and one phase-2 launch per entry and
+               frontier, counted), its frontiers equal to the compiler
+               phase's and its masks to the host mask, traced (device busy
+               and kernels beside A2's), the two phases' calls of its run
+               on the card's mesh, recorded as that run makes them, held
+               against and timed beside their plain version, and its
+               bound from the pairs those calls need;
                two gloo ranks (``torch.multiprocessing``, ``file://`` init
                in ``build/shard``), each its lane slice of the 13 specs on
                the card under ``mode="multihost"``, every rank's gathered
@@ -225,8 +239,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
  14. report    one ``{"kernels": [...]}`` line, then as the last line
                ``{"ok": true, "device": {...}}``.
 
-Each of phases 3-5 and 7 sets its kernels' launch counts to 0 just before
-its main path and reads them just after (phase 7 twice: K1 through
+Each of phases 2, 2b, 3-5 and 7 sets its kernels' launch counts to 0 just
+before its main path and reads them just after (phase 7 twice: K1 through
 ``profile_kernel``, then K2, the float32 / bfloat16 ``dcim_mac`` skeletons,
 timed at the six qwen3-4b GEMMs); every kernel must have launched.
 
@@ -401,10 +415,22 @@ def _same_array(a, b) -> bool:
     return bool(np.array_equal(a, b))
 
 
-def _device_profile(fn) -> tuple[float, float, int]:
-    """``(wall_s, device_busy_s, kernels)`` of one traced ``fn()`` call:
-    the union of the CUDA kernel intervals ``torch.profiler`` records, over
-    the host wall time of the traced window (tracing overhead included)."""
+def _busy_s(spans) -> float:
+    """Seconds covered by the union of ``(start_us, end_us)`` intervals."""
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us * 1e-6
+
+
+def _device_split(fn) -> tuple[float, dict]:
+    """``(wall_s, {kind: (device_busy_s, events)})`` of one traced ``fn()``
+    call: the union of the device intervals ``torch.profiler`` records, in
+    all (``all``) and by kind (``kernel``; ``memcpy``, a host <-> device or
+    device copy; ``memset``), over the host wall time of the traced window
+    (tracing overhead included)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -415,21 +441,36 @@ def _device_profile(fn) -> tuple[float, float, int]:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in spans:
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
-    return wall, busy_us * 1e-6, len(spans)
+    spans = {"all": [], "kernel": [], "memcpy": [], "memset": []}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        kind = ("memcpy" if e.name.startswith("Memcpy")
+                else "memset" if e.name.startswith("Memset") else "kernel")
+        spans["all"].append(span)
+        spans[kind].append(span)
+    return wall, {k: (_busy_s(v), len(v)) for k, v in spans.items()}
+
+
+def _device_profile(fn) -> tuple[float, float, int]:
+    """``(wall_s, device_busy_s, events)`` of one traced ``fn()`` call: the
+    union of every device interval (kernels and copies) of
+    :func:`_device_split`."""
+    wall, split = _device_split(fn)
+    return (wall, *split["all"])
 
 
 def phase_compiler() -> dict:
     import torch
 
     import repro_torch.core as C
+    from repro_torch.core import engine as E
+    from repro_torch.core import pareto as P
     from repro_torch.core import subcircuits as sc
+    from repro_torch.kernels.lattice_rollup import kernel as rollup_kernel
+    from repro_torch.kernels.pareto_dominated import kernel as dom_kernel
+    from torch_dominance_cases import dominance_cases
 
     tech = C.calibrated_tech_for_reference()
     scl = C.SubcircuitLibrary(tech).build()
@@ -442,19 +483,44 @@ def phase_compiler() -> dict:
     torch.cuda.synchronize()
     log(f"compiler: cuda context set-up {time.perf_counter() - t0:.3f} s")
     runs, walls = {}, {}
+    groups = []
+    count_groups = lambda plan: groups.extend(plan.groups)
     for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        results = C.mso_search_many(specs, scl, tech, config=config,
-                                    device=dev)
-        t1 = time.perf_counter()
-        sweeps = C.design_space_sweep_many(specs, tech, config=config,
-                                           device=dev)
-        t2 = time.perf_counter()
-        fronts = [s.frontier_indices() for s in sweeps]
-        t3 = time.perf_counter()
+        record = contextlib.nullcontext([])
+        if dev == "cuda":          # the main path's launches, counted
+            rollup_kernel.LAUNCHES["rollup"] = 0
+            dom_kernel.LAUNCHES.update(all=0, seg=0)
+            E.add_execute_hook(count_groups)
+            record = _recorded_dominance()
+        with record as calls:
+            t0 = time.perf_counter()
+            results = C.mso_search_many(specs, scl, tech, config=config,
+                                        device=dev)
+            t1 = time.perf_counter()
+            sweeps = C.design_space_sweep_many(specs, tech, config=config,
+                                               device=dev)
+            t2 = time.perf_counter()
+            fronts = [s.frontier_indices() for s in sweeps]
+            t3 = time.perf_counter()
         runs[dev] = (results, sweeps, fronts)
         walls[dev] = {"design_space_sweep_many": t2 - t1,
                       "frontier_indices": t3 - t2}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            E.remove_execute_hook(count_groups)
+            launches = {"rollup": rollup_kernel.LAUNCHES["rollup"],
+                        **dom_kernel.LAUNCHES}
+            log(f"compiler[cuda]: launches on the main path {launches} "
+                f"({len(groups)} spec groups, {len(fronts)} frontiers)")
+            check(launches == {"rollup": len(groups), "all": len(fronts),
+                               "seg": 0},
+                  f"compiler: launches {launches}: want one roll-up per "
+                  f"spec group ({len(groups)}) and one mask per frontier "
+                  f"({len(fronts)})")
+            check(len(calls) == len(fronts),
+                  f"compiler: {len(calls)} dominance calls recorded for "
+                  f"{len(fronts)} frontiers")
+            a2_calls = calls
         log(f"compiler[{dev}]: mso_search_many {t1 - t0:.3f} s, "
             f"design_space_sweep_many {t2 - t1:.3f} s, "
             f"frontier_indices {t3 - t2:.3f} s")
@@ -498,9 +564,10 @@ def phase_compiler() -> dict:
             f"bit for bit, search == scalar oracle")
 
     # Where the time goes on the card, traced apart from the checked runs:
-    # the lattice roll-up (A1 plus its host work) and the frontier masks
-    # (A2).  The busy share is taken against the untraced wall time of the
-    # same call above; a first traced call absorbs the tracer's start-up.
+    # the lattice roll-up (A1 plus its host work and copies) and the
+    # frontier masks (A2).  The busy share is taken against the untraced
+    # wall time of the same call above; a first traced call absorbs the
+    # tracer's start-up.
     _device_profile(lambda: torch.zeros(1, device="cuda"))
     traced = {}
     for what, fn in (
@@ -508,35 +575,197 @@ def phase_compiler() -> dict:
                 specs, tech, config=config, device="cuda")),
             ("frontier_indices", lambda: [s.frontier_indices()
                                           for s in sw_g])):
-        wall, busy, n = _device_profile(fn)
+        wall, split = _device_split(fn)
+        busy, n = split["all"]
         traced[what] = (busy, n)
         log(f"compiler[cuda, traced]: {what}: device busy {busy:.6f} s over "
-            f"{n} kernels, {100 * busy / walls['cuda'][what]:.3f}% of the "
-            f"untraced wall {walls['cuda'][what]:.6f} s (traced wall "
-            f"{wall:.6f} s)")
-    a1, a2 = _a1_bound_ms(specs, tech, config), _a2_bound_ms(sw_g)
-    log(f"compiler: bounds on the card: A1 _eval_kernel (4 specs) "
-        f"{a1[0]:.6f} ms ({a1[1]}), A2 chunk_dominated (4 frontiers) "
-        f"{a2[0]:.6f} ms ({a2[1]})")
+            f"{n} device events, {100 * busy / walls['cuda'][what]:.3f}% of "
+            f"the untraced wall {walls['cuda'][what]:.6f} s (traced wall "
+            f"{wall:.6f} s); by kind: " + ", ".join(
+                f"{k} {b:.6f} s over {c}" for k, (b, c) in split.items()
+                if k != "all"))
+
+    # The A2 edge sets: the kernel against its plain version on the card
+    eps = P.PARETO_EPS
+    cases = dominance_cases(eps, SEED)
+    for case in cases:
+        rows = torch.as_tensor(case.rows, device="cuda")
+        cands = torch.as_tensor(case.cands, device="cuda")
+        check(torch.equal(P.dominated(rows, cands, eps, seg=case.seg),
+                          P.dominated_ref(rows, cands, eps, seg=case.seg)),
+              f"compiler: pareto_dominated differs from its plain version "
+              f"on {case.name}")
+    log(f"compiler: pareto_dominated == its plain version on the card on "
+        f"{len(cases)} edge sets ({', '.join(c.name for c in cases)})")
+    kernels = [_a1_row(specs, tech, config, launches["rollup"]),
+               _a2_row(a2_calls, launches["all"])]
     return {"language": res_g[names.index("language")],
             "results": {"cuda": res_g, "cpu": res_c}, "fronts": fr_g,
-            "a2_traced": traced["frontier_indices"]}
+            "a2_traced": traced["frontier_indices"], "kernels": kernels}
 
 
-def _a1_bound_ms(specs, tech, config) -> tuple[float, str]:
-    """Least time of the lattice roll-up (A1, ``batched._eval_kernel``) over
-    the engine's spec groups: the int64 gather indices (shared by a group),
-    the per-spec tables and the float64 outputs (mac_base, ofu_base, area,
-    the five gathered area terms, one energy per mode) each moved once,
-    against its float64 adds and multiplies (8 per point plus 9 per mode)
-    at the FP64 rate."""
+def _same_bits(a, b) -> bool:
+    """Equal shape and bits of two float64 tensors (NaN included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int64), b.contiguous().view(torch.int64))
+
+
+def _max_abs_err(a, b) -> float:
+    """Largest |a - b| of two float tensors of one shape: 0 where both are
+    equal (infinities included) or both NaN, inf where only one is NaN."""
+    import torch
+    same = (a == b) | (a.isnan() & b.isnan())
+    diff = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    return float(diff.nan_to_num(nan=float("inf")).max()) if diff.numel() \
+        else 0.0
+
+
+def _a1_groups(specs, tech, config) -> list:
+    """The packed spec groups of ``design_space_sweep_many(specs, tech,
+    config=config)``: the main path's roll-up operands."""
     import repro_torch.core.engine as E
+    from repro_torch.core import batched as B
 
-    plan = E.plan(specs, tech, config=config, device="cpu")
+    plan = E.plan(specs, tech, B.MEMCELLS, config=config, device="cpu")
+    return [E.pack_group([plan.lattices[i] for i in group],
+                         [plan.tables[i] for i in group])
+            for group in plan.groups]
+
+
+def _a1_row(specs, tech, config, launches: int) -> dict:
+    """A1 on the card: the kernel's roll-up of each spec group held bit for
+    bit against its plain version (``_eval_kernel``) on the same operands,
+    and both timed (the copies to the card excluded)."""
+    import torch
+
+    import repro_torch.core.engine as E
+    from repro_torch.core import batched as B
+
+    groups = _a1_groups(specs, tech, config)
+    ops = []
+    for packed in groups:
+        tabs, consts, e_ofu, e_align = packed.operands
+        f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                        device="cuda")
+        ops.append((E._gather_index(packed, torch.device("cuda")),
+                    tuple(f64(t) for t in tabs), f64(consts), f64(e_ofu),
+                    f64(e_align)))
+    err = 0.0
+    for o in ops:
+        got, want = B.eval_lattice(*o), B._eval_kernel(*o)
+        outputs = [(k, got[k], want[k])
+                   for k in ("mac_base", "ofu_base", "area", "e_cycle")]
+        outputs += [(f"breakdown {k}", got["breakdown"][k], v)
+                    for k, v in want["breakdown"].items()]
+        for k, g, w in outputs:
+            check(_same_bits(g, w), f"compiler: lattice_rollup {k} differs "
+                  "from its plain version")
+            err = max(err, _max_abs_err(g, w))
+    ms = sum(_time_ms(lambda o=o: B.eval_lattice(*o)) for o in ops)
+    plain = sum(_time_ms(lambda o=o: B._eval_kernel(*o), reps=5)
+                for o in ops)
+    bound, by = _a1_bound_ms(groups)
+    points = sum(len(p) * len(p.idx[0]) for p in groups)
+    log(f"compiler: A1 lattice_rollup ({len(groups)} group, {points} "
+        f"(spec, point) pairs): {ms:.6f} ms, plain {plain:.6f} ms, bound "
+        f"{bound:.6f} ms ({by}); equal to the plain version bit for bit "
+        f"(max abs err {err})")
+    return {"name": "lattice_rollup", "route": "cuda",
+            "source": "src/repro_torch/csrc/lattice_rollup.cu",
+            "replaces": "src/repro/core/batched.py:612", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def _frontier_objs(sweep) -> np.ndarray:
+    """The objectives ``sweep.frontier_indices()`` masks: its feasible
+    valid points, or every valid point where none is feasible."""
+    cand = np.flatnonzero(sweep.lattice.valid & sweep.ppa.meets)
+    if cand.size == 0:
+        cand = np.flatnonzero(sweep.lattice.valid)
+    return sweep.objectives()[cand]
+
+
+@contextlib.contextmanager
+def _recorded_dominance():
+    """Record every :func:`repro_torch.core.pareto.dominated` call made in
+    the block, by the sharded mask and by ``batched.pareto_mask`` (which
+    holds the function under its own name), as ``(rows, cands, eps, seg,
+    chunk, verdicts)`` in call order.  The calls run as they would."""
+    from repro_torch.core import batched as B
+    from repro_torch.core import pareto as P
+
+    calls, dominated = [], P.dominated
+
+    def recording(rows, cands, eps=P.PARETO_EPS, seg=0, chunk=512):
+        got = dominated(rows, cands, eps, seg, chunk)
+        calls.append((rows, cands, eps, seg, chunk, got))
+        return got
+
+    P.dominated = B.dominated = recording
+    try:
+        yield calls
+    finally:
+        P.dominated = B.dominated = dominated
+
+
+def _dominance_row(name: str, replaces: str, calls, launches: int,
+                   plain_reps: int) -> tuple[dict, int]:
+    """A kernels-line row of the dominance kernel from the main path's
+    recorded ``calls``: each call's verdicts (the kernel's) held against
+    its plain version on the same inputs, the number of verdicts that
+    differ as the error, and both versions timed on those inputs.  Also
+    returns the pair count of the bound."""
+    from repro_torch.core import pareto as P
+
+    err, ms, plain = 0, 0.0, 0.0
+    for rows, cands, eps, seg, chunk, got in calls:
+        want = P.dominated_ref(rows, cands, eps, seg, chunk)
+        check(got.shape == want.shape and got.device == want.device,
+              f"{name}: verdicts of shape {tuple(got.shape)} on "
+              f"{got.device}, want {tuple(want.shape)} on {want.device}")
+        err += int((got != want).sum())
+        ms += _time_ms(lambda: P.dominated(rows, cands, eps, seg, chunk),
+                       reps=10)
+        plain += _time_ms(lambda: P.dominated_ref(rows, cands, eps, seg,
+                                                  chunk), reps=plain_reps)
+    check(err == 0, f"{name}: {err} verdicts of the main path differ from "
+          "the plain version")
+    bound, by, pairs = _dominance_bound_ms(calls)
+    return ({"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/pareto_dominated.cu",
+             "replaces": replaces, "launches": launches, "max_abs_err": err,
+             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+             "library_ms": None}, pairs)
+
+
+def _a2_row(calls, launches: int) -> dict:
+    """A2 on the card: the frontier masks' calls of the counted main path
+    run, by the kernel and by its plain version (the chunked torch ops)."""
+    row, pairs = _dominance_row("pareto_dominated",
+                                "src/repro/core/pareto.py:52", calls,
+                                launches, plain_reps=2)
+    all_pairs, all_by, _ = _dominance_bound_ms(calls, all_pairs=True)
+    log(f"compiler: A2 pareto_dominated (4 frontiers of "
+        f"{[c[1].shape[0] for c in calls]} points, "
+        f"{[int((~c[5]).sum()) for c in calls]} not dominated): "
+        f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms; bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}, the {pairs} pairs "
+        f"these data need), all-pairs bound {all_pairs:.6f} ms ({all_by}); "
+        f"{row['max_abs_err']} verdicts differ from the plain version")
+    return row
+
+
+def _a1_bound_ms(groups) -> tuple[float, str]:
+    """Least time of the lattice roll-up (A1) over the packed spec
+    ``groups``: the int64 gather indices (shared by a group), the per-spec
+    tables and the float64 outputs (mac_base, ofu_base, area, the five
+    gathered area terms, one energy per mode) each moved once, against its
+    float64 adds and multiplies (8 per point plus 9 per mode) at the FP64
+    rate."""
     nbytes = ops = 0
-    for group in plan.groups:
-        packed = E.pack_group([plan.lattices[i] for i in group],
-                              [plan.tables[i] for i in group])
+    for packed in groups:
         n = len(packed.idx[0])
         tabs, consts, e_ofu, e_align = packed.operands
         lanes, modes = e_ofu.shape[:2]
@@ -549,21 +778,36 @@ def _a1_bound_ms(specs, tech, config) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _a2_bound_ms(sweeps) -> tuple[float, str]:
-    """Least time of the frontier masks (A2, ``pareto.chunk_dominated``):
-    two float64 compares (``<=`` and ``<`` with the eps band) per objective
-    per pair of feasible points, against the objectives read once and the
-    mask written once."""
-    nbytes = ops = 0
-    for sw in sweeps:
-        n = int((sw.lattice.valid & sw.ppa.meets).sum()) \
-            or int(sw.lattice.valid.sum())
-        k = sw.objectives().shape[1]
-        nbytes += 8 * n * k + n
-        ops += 2 * k * n * n
+def _dominance_bound_ms(calls, all_pairs: bool = False
+                        ) -> tuple[float, str, int]:
+    """Least time of the recorded dominance ``calls`` (A2, A3) for this
+    run's data: each call's rows and candidates read once (once in all
+    where they are one tensor) and its verdicts written once, against two
+    float64 compares (``<=`` and ``<`` with the eps band) per objective per
+    pair the data need: a candidate that no row dominates is tested against
+    every row of its test (all rows, or its block's with ``seg``), a
+    dominated one against its one witness.  ``all_pairs`` counts every
+    candidate against every row of its test.  Also returns the pair
+    count."""
+    nbytes = ops = pairs = 0
+    for rows, cands, _, seg, _, got in calls:
+        (n, k), c = rows.shape, cands.shape[0]
+        if seg:
+            start = np.arange(c) // seg * seg
+            tested = np.minimum(start + seg, n) - start
+        else:
+            tested = np.full(c, n)
+        kept = ~got.cpu().numpy()
+        need = (int(tested.sum()) if all_pairs
+                else int(tested[kept].sum()) + int((~kept).sum()))
+        same = (rows.data_ptr() == cands.data_ptr()
+                and rows.shape == cands.shape)
+        pairs += need
+        ops += 2 * k * need
+        nbytes += 8 * k * (n + (0 if same else c)) + c
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -611,44 +855,7 @@ def _shard_rank(rank: int, world: int, work: str) -> None:
         dist.destroy_process_group()
 
 
-def _a3_bound_ms(sweeps, n_dev: int) -> tuple[float, str, int]:
-    """Least time of the sharded frontier masks (A3,
-    ``pareto.nondominated_mask_sharded`` on ``n_dev`` entries) over the
-    pairs its two phases compare for this run's data: each shard's blocks
-    against themselves (real rows only), then the phase-1 survivors against
-    every row; two float64 compares per objective per pair, against the
-    objectives read once and the mask written once.  Also returns the pair
-    count."""
-    import torch
-
-    from repro_torch.core.pareto import chunk_dominated
-
-    nbytes = pairs = k = 0
-    for sw in sweeps:
-        cand = np.flatnonzero(sw.lattice.valid & sw.ppa.meets)
-        if cand.size == 0:
-            cand = np.flatnonzero(sw.lattice.valid)
-        objs = sw.objectives()[cand]
-        n, k = objs.shape
-        m = -(-n // n_dev)
-        c = max(64, min(1024, m))
-        rows = torch.as_tensor(objs, dtype=torch.float64, device="cuda")
-        survivors = 0
-        m_p = -(-m // c) * c                     # a shard's whole blocks
-        for lo in range(0, n_dev * m_p, m_p):
-            for s in range(lo, min(lo + m_p, n), c):
-                blk = rows[s:min(s + c, n)]
-                pairs += blk.shape[0] ** 2
-                survivors += int((~chunk_dominated(blk, blk, 1e-12)).sum())
-        pairs += survivors * n
-        nbytes += 8 * n * k + n
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * k * pairs / FP64_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", pairs)
-
-
-def phase_shard(compiler: dict) -> None:
+def phase_shard(compiler: dict) -> list[dict]:
     """The sharded compiler engine on the card (module doc, phase 2b),
     held against the compiler phase's cuda results (themselves held bit for
     bit against ``device="cpu"``) and the unsharded engine."""
@@ -659,11 +866,13 @@ def phase_shard(compiler: dict) -> None:
 
     import repro_torch.core as C
     from repro_torch.core import engine as E
+    from repro_torch.core import pareto as P
     from repro_torch.core import subcircuits as sc
     from repro_torch.core.shardspec import (design_space_sweep_many_sharded,
                                             mso_search_many_sharded,
                                             spec_variants)
     from repro_torch.parallel import host_spec_mesh, spec_sweep_mesh
+    from repro_torch.kernels.pareto_dominated import kernel as dom_kernel
     from repro_torch.service import (FrontierCache, SynthesisRequest,
                                      SynthesisService)
 
@@ -720,27 +929,56 @@ def phase_shard(compiler: dict) -> None:
         f"mso_search_many: {', '.join(walls)}")
 
     # 3. A3 at lattice scale: the scenario sweeps' frontiers through the
-    #    sharded mask, on the card's mesh and on four entries
+    #    sharded mask, on the card's mesh and on four entries; the kernel's
+    #    launches counted around each (two per entry and frontier)
     scen = list(C.scenario_specs().values())
     for label, mesh in (("1 entry", card), ("4 entries", four)):
         sweeps = design_space_sweep_many_sharded(scen, tech, config=config,
                                                  mesh=mesh, mode="jit")
+        dom_kernel.LAUNCHES.update(all=0, seg=0)
         t0 = time.perf_counter()
-        fronts = [s.frontier_indices() for s in sweeps]
+        with _recorded_dominance() as calls:
+            fronts = [s.frontier_indices() for s in sweeps]
         t_front = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        n_dev = mesh.devices.size
+        got = dict(dom_kernel.LAUNCHES)
+        check(got == {"all": 4 * n_dev, "seg": 4 * n_dev}
+              and len(calls) == 8 * n_dev,
+              f"shard: A3 on {label}: launches {got} from {len(calls)} "
+              f"calls, want one per phase, entry and frontier")
+        if mesh is card:           # the main path: the card's own mesh
+            a3_calls, a3_launches = calls, got["all"] + got["seg"]
         check(fronts == compiler["fronts"],
               f"shard: A3 frontiers on {label} differ from the compiler "
               "phase's")
-        wall, busy, n_k = _device_profile(
+        objs_list = [_frontier_objs(s) for s in sweeps]
+        masks = [P.nondominated_mask(o) for o in objs_list]
+        check(all(np.array_equal(P.nondominated_mask_sharded(o, mesh=mesh),
+                                 want)
+                  for o, want in zip(objs_list, masks)),
+              f"shard: A3's masks on {label} differ from the host mask")
+        wall, split = _device_split(
             lambda: [s.frontier_indices() for s in sweeps])
-        bound, by, pairs = _a3_bound_ms(sweeps, mesh.devices.size)
+        (busy, n_k), (k_busy, k_n) = split["all"], split["kernel"]
+        bound, by, pairs = _dominance_bound_ms(calls)
         a2_busy, a2_kernels = compiler["a2_traced"]
         log(f"shard: A3 nondominated_mask_sharded on {label} "
-            f"(4 frontiers): frontier_indices {t_front:.3f} s == the "
-            f"compiler phase's; traced: device busy {busy:.6f} s over {n_k} "
-            f"kernels ({wall:.3f} s wall; A2 in the compiler phase: "
-            f"{a2_busy:.6f} s over {a2_kernels} kernels); bound "
-            f"{bound:.6f} ms ({by}, {pairs} pairs)")
+            f"(4 frontiers): launches {got}; frontier_indices "
+            f"{t_front:.3f} s == the compiler phase's, masks == the host "
+            f"mask; traced: device busy {busy:.6f} s over {n_k} device "
+            f"events, kernels {k_busy:.6f} s over {k_n} ({wall:.3f} s "
+            f"wall; A2 in the compiler phase: {a2_busy:.6f} s over "
+            f"{a2_kernels} events); bound {bound:.6f} ms ({by}, {pairs} "
+            f"pairs)")
+    row, pairs = _dominance_row("pareto_dominated_sharded",
+                                "src/repro/core/pareto.py:164", a3_calls,
+                                a3_launches, plain_reps=5)
+    log(f"shard: A3 pareto_dominated, the {len(a3_calls)} calls (both "
+        f"phases) of the 1-entry run: {row['ms']:.6f} ms, plain "
+        f"{row['plain_ms']:.6f} ms, bound {row['bound_ms']:.6f} ms "
+        f"({row['bound_by']}, the {pairs} pairs these data need); "
+        f"{row['max_abs_err']} verdicts differ from the plain version")
 
     # 4. the multi-process branch: two gloo ranks on the one card
     work = ROOT / "build" / "shard"
@@ -790,6 +1028,7 @@ def phase_shard(compiler: dict) -> None:
     log(f"shard: SynthesisService(mode=\"sharded\") on the card: 4 scenario "
         f"specs in one sharded-jit pass, {t_svc:.3f} s, equal to the "
         f"compiler phase's search")
+    return [row]
 
 
 # ---------------------------------------------------------------------------
@@ -3113,6 +3352,7 @@ def main() -> int:
               "(no src/repro_torch)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.append(str(ROOT / "tests"))       # the dominance edge sets
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3121,9 +3361,10 @@ def main() -> int:
     t1 = time.perf_counter()
     chosen = phase_compiler()
     t2 = time.perf_counter()
-    phase_shard(chosen)
+    compiler_kernels = chosen["kernels"] + phase_shard(chosen)
     t2b = time.perf_counter()
     kernels, wk = phase_mac(chosen["language"])
+    kernels = compiler_kernels + kernels
     t3 = time.perf_counter()
     kernels += phase_csa(wk)
     t4 = time.perf_counter()

@@ -45,11 +45,14 @@ this module is the single-spec ``"jit"`` strategy,
 
 Bit-identity with the scalar roll-up rests on four rules, kept in
 :func:`_eval_kernel` and its callers: every tensor is created as float64
-explicitly; each step is one eager single-op torch call (exact IEEE float64
-on CPU and on CUDA; no ``addcmul``, ``lerp`` or ``torch.compile``, which
-would fuse a multiply into an add); gather indices are int64 on the device;
-and no division runs on the device (CUDA's ``tensor / scalar`` multiplies by
-the reciprocal), which is why :func:`_finish` stays in numpy.
+explicitly; each step is one eager single-op torch call (exact IEEE float64;
+no ``addcmul``, ``lerp`` or ``torch.compile``, which would fuse a multiply
+into an add); gather indices are int64 on the device; and no division runs
+on the device (CUDA's ``tensor / scalar`` multiplies by the reciprocal),
+which is why :func:`_finish` stays in numpy.  :func:`_eval_kernel` is the
+plain version that runs on the CPU; on a CUDA card :func:`eval_lattice`
+launches the hand-written kernel (``csrc/lattice_rollup.cu``), which keeps
+the same operations in the same order, unfused.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ from .csa import CSADesign, CSAReport, characterize
 from .macro import (ACT_IN_MEAS, ACT_WT_MEAS, MacroDesign, MacroPPA,
                     MacroSpec, PathReport, _mode_bits, _product_bits,
                     reporting_frequency)
-from .pareto import (PARETO_EPS, chunk_dominated, nondominated_mask,
+from .pareto import (PARETO_EPS, dominated, nondominated_mask,
                      pareto_chunk_size, preference_grid)
 from .searcher import SearchResult, _throughput_overdrive, max_crit_rel
 from .tech import TechModel, delay_scale, energy_scale, leakage_scale
@@ -687,6 +690,19 @@ def _eval_kernel(idx, tabs, consts, e_ofu_m, e_align_m):
             "breakdown": breakdown, "e_cycle": e_cycle}
 
 
+def eval_lattice(idx, tabs, consts, e_ofu_m, e_align_m) -> dict:
+    """The lattice roll-up of :func:`_eval_kernel` on the operands' device:
+    CPU tensors run that plain version; any other device the CUDA kernel
+    (:mod:`repro_torch.kernels.lattice_rollup`, one launch for the whole
+    spec stack, the same bits) or raises: it never falls back to the plain
+    version."""
+    if all(t.device.type == "cpu" for t in (*idx, *tabs, consts, e_ofu_m,
+                                             e_align_m)):
+        return _eval_kernel(idx, tabs, consts, e_ofu_m, e_align_m)
+    from ..kernels.lattice_rollup.kernel import lattice_rollup_cuda
+    return lattice_rollup_cuda(idx, tabs, consts, e_ofu_m, e_align_m)
+
+
 def _kernel_inputs(tables: SpecTables
                    ) -> tuple[tuple[np.ndarray, ...], np.ndarray,
                               np.ndarray, np.ndarray]:
@@ -800,23 +816,23 @@ def _evaluated(spec: MacroSpec, tech: TechModel, config: LatticeConfig,
 def pareto_mask(objs: np.ndarray, eps: float = PARETO_EPS,
                 chunk: int = 512, device=None) -> np.ndarray:
     """Non-dominated mask over an (n, k) objective matrix (minimization),
-    computed on ``device`` in chunks so lattice-sized sweeps stay in memory
-    (size the chunk for the device with :func:`repro_torch.core.pareto.
+    every point tested against every point on ``device`` through
+    :func:`repro_torch.core.pareto.dominated`: on a CUDA card in one kernel
+    launch, which keeps no (chunk, n) mask; on the CPU by the plain version
+    in chunks of ``chunk`` points, so lattice-sized sweeps stay in memory
+    (size the chunk with :func:`repro_torch.core.pareto.
     pareto_chunk_size`).  Dominance semantics match
     :func:`repro_torch.core.pareto.dominates` through the shared
     :data:`repro_torch.core.pareto.PARETO_EPS` band — near-tie objectives
     land on the same frontier in the scalar and batched paths by
-    construction.  The verdicts stay on the device until the last chunk and
-    come back to the host in one copy."""
+    construction.  The verdicts come back to the host in one copy."""
     objs = np.asarray(objs, dtype=np.float64)
     n = objs.shape[0]
     if n == 0:
         return np.ones(0, dtype=bool)
     all_o = torch.as_tensor(objs, dtype=torch.float64,
                             device=resolve_device(device))
-    dominated = torch.cat([chunk_dominated(all_o, all_o[s:s + chunk], eps)
-                           for s in range(0, n, chunk)])
-    return ~dominated.cpu().numpy()
+    return ~dominated(all_o, all_o, eps, chunk=chunk).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,12 @@ The path modules are thin strategies over this one pipeline:
             for the sharded modes, a device mesh (:func:`place` /
             :class:`Placement`);
   execute   pack each group's operands (:func:`pack_group`), run the shared
-            float64 kernel (:func:`repro_torch.core.batched._eval_kernel`)
-            under the placed strategy, and finish with the shared single-spec
-            numpy tail (:func:`unpack_group`) — per-spec results are
-            bit-identical across strategies because the kernel is
-            elementwise per spec row (:func:`execute`);
+            float64 roll-up (:func:`repro_torch.core.batched.eval_lattice`:
+            the CUDA kernel on a card, its plain version ``_eval_kernel``
+            on the CPU) under the placed strategy, and finish with the
+            shared single-spec numpy tail (:func:`unpack_group`) —
+            per-spec results are bit-identical across strategies because
+            the kernel is elementwise per spec row (:func:`execute`);
   extract   the frontier tail: a survivor mask (host predicate, on-device
             chunked, or sharded over a mesh — all computing the same
             eps-band verdicts) followed by the exact dedup/order pass
@@ -300,7 +301,7 @@ def _dispatch(idx: tuple, operands: tuple, device: torch.device) -> dict:
     def f64(a):
         return torch.as_tensor(a, dtype=torch.float64, device=device)
 
-    return B._eval_kernel(idx, tuple(f64(t) for t in tabs_s), f64(consts_s),
+    return B.eval_lattice(idx, tuple(f64(t) for t in tabs_s), f64(consts_s),
                           f64(e_ofu_s), f64(e_align_s))
 
 

@@ -11,12 +11,15 @@ verdicts (bit-identical masks, same output order):
                                      prefilter, then every local survivor is
                                      refined against *all* rows);
   :func:`repro_torch.core.batched.pareto_mask`
-                                     the same chunked predicate on one torch
-                                     device;
+                                     the same predicate on one torch device;
   :func:`nondominated_mask_sharded`  map-reduce over the entries of a device
                                      mesh — per-shard local frontier, gather
                                      survivors, refinement against all rows
                                      (lattice-scale frontiers).
+
+The two device tiers test through :func:`dominated`: on a CUDA card the
+hand-written kernel (``csrc/pareto_dominated.cu``), one launch per call; on
+the CPU its plain version, :func:`chunk_dominated` per chunk.
 """
 
 from __future__ import annotations
@@ -66,6 +69,48 @@ def chunk_dominated(all_o, blk, eps):
         le = le & (all_o[None, :, d] <= blk[:, None, d] + eps)
         lt = lt | (all_o[None, :, d] < blk[:, None, d] - eps)
     return (le & lt).any(1)
+
+
+def dominated_ref(rows: torch.Tensor, cands: torch.Tensor,
+                  eps: float = PARETO_EPS, seg: int = 0,
+                  chunk: int = 512) -> torch.Tensor:
+    """Plain version of :func:`dominated`: :func:`chunk_dominated` as torch
+    ops, against every row in candidate chunks of ``chunk`` (``seg`` 0),
+    or per block of ``seg`` candidates against the same block of rows."""
+    if seg:
+        if rows.shape[0] != cands.shape[0]:
+            raise ValueError(f"seg > 0 tests each candidate against its own "
+                             f"block of rows: needs as many rows as "
+                             f"candidates, got {rows.shape[0]} and "
+                             f"{cands.shape[0]}")
+        parts = [chunk_dominated(rows[s:s + seg], cands[s:s + seg], eps)
+                 for s in range(0, cands.shape[0], seg)]
+    else:
+        parts = [chunk_dominated(rows, cands[s:s + chunk], eps)
+                 for s in range(0, cands.shape[0], chunk)]
+    if not parts:
+        return torch.zeros(0, dtype=torch.bool, device=cands.device)
+    return torch.cat(parts)
+
+
+def dominated(rows: torch.Tensor, cands: torch.Tensor,
+              eps: float = PARETO_EPS, seg: int = 0,
+              chunk: int = 512) -> torch.Tensor:
+    """Eps-band dominance verdicts (c,) bool of candidates (c, k) against
+    rows (n, k), float64 on one device: entry ``i`` is True iff some row
+    dominates ``cands[i]`` under exactly the :func:`dominates` semantics.
+    ``seg > 0`` tests candidate ``i`` only against the rows of its own
+    block ``[i // seg * seg, i // seg * seg + seg)`` (the sharded mask's
+    phase 1; rows and candidates then have one count).
+
+    CPU tensors run the plain version (:func:`dominated_ref`, in chunks of
+    ``chunk`` candidates); any other device the CUDA kernel
+    (:mod:`repro_torch.kernels.pareto_dominated`), one launch for all
+    candidates, or raises: it never falls back to the plain version."""
+    if rows.device.type == "cpu" and cands.device.type == "cpu":
+        return dominated_ref(rows, cands, eps, seg, chunk)
+    from ..kernels.pareto_dominated.kernel import pareto_dominated_cuda
+    return pareto_dominated_cuda(rows, cands, eps, seg)
 
 
 def _as_matrix(objs) -> np.ndarray:
@@ -139,24 +184,26 @@ def nondominated_mask_sharded(objs, eps: float = PARETO_EPS,
 
     The rows are split into one contiguous shard per mesh entry (padded
     with ``+inf``) and the verdict is computed in two exact phases, both
-    running the shared :func:`chunk_dominated` predicate as torch ops on
-    each entry's device:
+    through :func:`dominated` on each entry's device (the CUDA kernel on a
+    card, the plain version on the CPU):
 
-      1. *per-shard local prefilter* — each shard walks its rows in blocks
-         of ``chunk`` (default ``max(64, min(1024, rows per shard))``),
-         testing each block against itself; a row dominated inside its own
-         block is dominated, full stop (the witness is a real row).  Each
-         shard is copied to its device once and its blocks are cut there;
+      1. *per-shard local prefilter* — each shard's rows in blocks of
+         ``chunk`` (default ``max(64, min(1024, rows per shard))``), each
+         block tested against itself (``seg=chunk``, one call per shard);
+         a row dominated inside its own block is dominated, full stop (the
+         witness is a real row).  Each shard is copied to its device once;
          every ``mode`` (validated by the engine's
          :func:`repro_torch.core.engine.resolve_sharded_mode`) runs this
          one pass over every entry of ``mesh``;
-      2. *cross-shard refinement* — the local survivors, in strides of one
-         ``+inf``-padded block per entry, are re-tested against **all**
-         rows, replicated on each entry's device.  Eps-band dominance is
-         not transitive, so testing survivors only against other survivors
+      2. *cross-shard refinement* — the local survivors, split into one
+         contiguous ``+inf``-padded slice per entry, are re-tested against
+         **all** rows, replicated on each entry's device (one call per
+         entry; the plain version walks its slice in chunks sized to the
+         entry's share of the memory budget).  Eps-band dominance is not
+         transitive, so testing survivors only against other survivors
          would not be exact; testing against every row is.
 
-    Every entry's blocks are issued before any verdict is copied back, so
+    Every entry's work is issued before any verdict is copied back, so
     entries on distinct cards overlap.  An ``+inf`` row never dominates a
     finite one, and pad verdicts are dropped before they are read.  The
     result is bit-identical to the host :func:`nondominated_mask` — same
@@ -188,37 +235,32 @@ def nondominated_mask_sharded(objs, eps: float = PARETO_EPS,
     def put(a, dev):
         return torch.as_tensor(a, dtype=torch.float64, device=dev)
 
-    parts: list[list] = [[] for _ in devices]
+    parts = []
     for d, dev in enumerate(devices):
         shard = put(shards[d], dev)
-        for s in range(0, m_p, c):
-            blk = shard[s:s + c]
-            parts[d].append(chunk_dominated(blk, blk, eps))
-    dominated = np.concatenate([torch.cat(p).cpu().numpy()
-                                for p in parts])[:n]
+        parts.append(dominated(shard, shard, eps, seg=c))
+    out = np.concatenate([p.cpu().numpy() for p in parts])[:n]
 
-    survivors = np.flatnonzero(~dominated)
+    survivors = np.flatnonzero(~out)
     rows = {}                                        # replicated per device
     for dev in devices:
         if dev not in rows:
             rows[dev] = put(objs, dev)
-    # survivor blocks sized so each entry's comparison masks fit its slice
-    # of the memory budget
+    # plain version's survivor chunks sized so each entry's comparison
+    # masks fit its slice of the memory budget
     cr = max(64, pareto_chunk_size(
         n, k, DEFAULT_PARETO_BUDGET_BYTES // n_dev))
-    stride = n_dev * cr
-    for start in range(0, survivors.size, stride):
-        idx = survivors[start:start + stride]
-        blk = objs[idx]
-        if blk.shape[0] < stride:                    # whole blocks
-            blk = np.concatenate(
-                [blk, np.full((stride - blk.shape[0], k), np.inf)])
-        blk = blk.reshape(n_dev, cr, k)
-        verdicts = [chunk_dominated(rows[dev], put(blk[d], dev), eps)
-                    for d, dev in enumerate(devices)]
-        verdict = np.concatenate([v.cpu().numpy() for v in verdicts])
-        dominated[idx] = verdict[:idx.size]
-    return ~dominated
+    per = -(-survivors.size // n_dev)                # survivors per entry
+    blk = objs[survivors]
+    if per * n_dev > blk.shape[0]:                   # whole slices
+        blk = np.concatenate(
+            [blk, np.full((per * n_dev - blk.shape[0], k), np.inf)])
+    blk = blk.reshape(n_dev, per, k)
+    verdicts = [dominated(rows[dev], put(blk[d], dev), eps, chunk=cr)
+                for d, dev in enumerate(devices)]
+    verdict = np.concatenate([v.cpu().numpy() for v in verdicts])
+    out[survivors] = verdict[:survivors.size]
+    return ~out
 
 
 def nondominated_mask_auto(objs, eps: float = PARETO_EPS) -> np.ndarray:

@@ -12,6 +12,17 @@ version.
             a chunk-parallel scan with a plain-load and a ``cp.async``-ring
             variant.  CUDA C++ in ``csrc/ssm_scan.cu``.
 
+The compiler's two device kernels are bindings only; their dispatchers live
+beside their plain versions in :mod:`repro_torch.core`:
+
+  lattice_rollup    the float64 PPA roll-up of a design lattice for a
+                    stack of specs (``core.batched.eval_lattice``).  CUDA
+                    C++ in ``csrc/lattice_rollup.cu``, built with
+                    ``-fmad=false``.
+  pareto_dominated  eps-band Pareto dominance verdicts, against every row
+                    or block-local (``core.pareto.dominated``: the frontier
+                    masks).  CUDA C++ in ``csrc/pareto_dominated.cu``.
+
 A wrapper runs the plain version for CPU tensors and the kernel for CUDA
 tensors; it never falls back from one to the other.  ``tile_config``
 (None, a :class:`TileConfig`, or ``"auto"``) picks the launch posture from
@@ -25,6 +36,8 @@ from .csa_tree import (CSA_MAX_ROWS, csa_tree_ref, csa_tree_rows_cuda,
 from .dcim_mac import (dcim_mac_cuda, dcim_mac_int_cuda, dcim_matmul,
                        dcim_matmul_int)
 from .instrument import dispatch_span
+from .lattice_rollup import lattice_rollup_cuda
+from .pareto_dominated import pareto_dominated_cuda
 from .ssm_scan import ssm_scan, ssm_scan_assoc_ref, ssm_scan_cuda, ssm_scan_ref
 from .tiles import (DEFAULT_TILES, TileConfig, resolve_tile, shape_class,
                     tile_space)
@@ -35,5 +48,6 @@ __all__ = [
     "dcim_mac_cuda", "dcim_mac_int_cuda", "dcim_matmul", "dcim_matmul_int",
     "ssm_scan", "ssm_scan_assoc_ref", "ssm_scan_cuda", "ssm_scan_ref",
     "DEFAULT_TILES", "TileConfig", "resolve_tile", "shape_class",
-    "tile_space", "dispatch_span",
+    "tile_space", "dispatch_span", "lattice_rollup_cuda",
+    "pareto_dominated_cuda",
 ]

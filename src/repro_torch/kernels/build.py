@@ -16,6 +16,13 @@ A source may also be built as the ``skeletons`` variant: compiled with
 ``-DSKELETONS``, it holds its kernels' profiling skeletons
 (:mod:`repro_torch.kernels.profile`) in a library of its own, so that the
 main path's library and its build stay as they are.
+
+A source may carry flags of its own (:data:`SOURCE_FLAGS`): the float64
+lattice roll-up is built with ``-fmad=false``.  That is a safety net only:
+its arithmetic is written in ``__dadd_rn`` / ``__dmul_rn``, which nvcc
+never contracts into an FMA, and the flag keeps a plain ``a * b + c``
+that a later edit adds from being contracted either.  A source's flags
+are part of its library's hash.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: Flags of one source beyond :data:`NVCC_FLAGS`, by name.
+SOURCE_FLAGS = {"lattice_rollup": ("-fmad=false",)}
+
 #: The variant of a source that holds its profiling skeletons, and the
 #: sources that have one.
 SKELETONS = "skeletons"
@@ -53,10 +63,13 @@ def _nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def _variant_flags(variant: str | None) -> tuple[str, ...]:
+def _flags(name: str, variant: str | None) -> tuple[str, ...]:
+    """The flags ``csrc/<name>.cu`` (as ``variant``) is built with beyond
+    :data:`NVCC_FLAGS`."""
     if variant not in (None, SKELETONS):
         raise ValueError(f"unknown build variant {variant!r}")
-    return () if variant is None else (f"-D{variant.upper()}",)
+    return SOURCE_FLAGS.get(name, ()) + (
+        () if variant is None else (f"-D{variant.upper()}",))
 
 
 def library_path(name: str, variant: str | None = None) -> Path:
@@ -64,7 +77,7 @@ def library_path(name: str, variant: str | None = None) -> Path:
     for its current text."""
     text = (CSRC / f"{name}.cu").read_bytes()
     stem = name if variant is None else f"{name}_{variant}"
-    digest = hashlib.sha256(text + " ".join(_variant_flags(variant))
+    digest = hashlib.sha256(text + " ".join(_flags(name, variant))
                             .encode()).hexdigest()
     return BUILD_DIR / f"lib{stem}-{digest[:16]}.so"
 
@@ -91,7 +104,7 @@ def build_library(name: str, variant: str | None = None) -> Path:
     """Compile ``csrc/<name>.cu`` (as ``variant``, when one is given)
     unless its library is already built, and return the library's path."""
     return _compile(CSRC / f"{name}.cu", library_path(name, variant),
-                    _variant_flags(variant))
+                    _flags(name, variant))
 
 
 def source_library_path(name: str, text: str) -> Path:

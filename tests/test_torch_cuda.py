@@ -1,8 +1,10 @@
 """The port on the CUDA card: the hand-written ``dcim_mac``, ``csa_tree``
 and ``ssm_scan`` kernels and their profiling skeletons against their plain
 torch versions, the tile autotuner's winners, the kernel profiler, the
-compiler's device path against the CPU, and the model zoo's smoke configs
-and serving launcher on the card.
+compiler's device path against the CPU and its two kernels
+(``lattice_rollup``, ``pareto_dominated``) against their plain versions,
+with their launch counts, and the model zoo's smoke configs and serving
+launcher on the card.
 
 Every test here needs a card, carries the ``cuda`` marker and skips with a
 reason where none is visible (the kernel has no CPU mode).  The module
@@ -13,8 +15,8 @@ only torch:
 
 Tolerances: none for ``dcim_mac`` and ``csa_tree`` (int32, float32 and
 bfloat16 outputs must equal the plain version's bits), for every
-skeleton's data token, and for the compiler (its arrays must equal the
-CPU's bits).  ``ssm_scan`` is a float
+skeleton's data token, and for the compiler (its arrays and verdicts must
+equal the CPU's and the plain versions' bits).  ``ssm_scan`` is a float
 scan: it must equal its chunked plain version bit for bit at every tile and
 depth, and stay within the JAX package's rtol/atol of 2e-5 (3e-5 on ragged
 shapes) of the sequential plain version.
@@ -49,8 +51,19 @@ from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 from repro_torch.kernels.ssm_scan.ref import (ssm_scan_compute_ref,
                                               ssm_scan_copy_ref)
 from repro_torch.obs.metrics import get_registry
+from repro_torch.core import batched as B
+from repro_torch.core import engine as E
+from repro_torch.core import pareto as P
+from repro_torch.core.pareto import dominated_ref
+from repro_torch.parallel import spec_sweep_mesh
+from repro_torch.kernels.lattice_rollup import kernel as rollup_kernel
+from repro_torch.kernels.pareto_dominated import kernel as dom_kernel
+from torch_dominance_cases import dominance_cases
 
 pytestmark = pytest.mark.cuda
+
+FULL_LATTICE = C.LatticeConfig(precision_modes=3,
+                               approx_cells=sc.APPROX_CELLS)
 
 # padded, one block, multi-block, ragged, a single row, and the qwen3-4b
 # wk GEMM at seq 256; then TMA-route shapes at a small K with each split
@@ -223,6 +236,128 @@ def test_sharded_engine_on_the_card_equals_cpu(cuda_device, mode):
                                                mode=mode)
     (cpu,) = C.design_space_sweep_many(specs[:1], tech, device="cpu")
     assert sweep.frontier_indices() == cpu.frontier_indices()
+
+
+# -- the compiler's device kernels (A1, A2, A3) -------------------------------
+
+DOMINANCE_CASES = dominance_cases(P.PARETO_EPS, seed=0)
+
+
+@pytest.mark.parametrize("case", DOMINANCE_CASES,
+                         ids=[c.name for c in DOMINANCE_CASES])
+def test_dominance_kernel_equals_plain_version(cuda_device, case):
+    """The eps-band dominance kernel against its plain version on the card
+    and on the CPU, bit for bit, one launch a call."""
+    eps = P.PARETO_EPS
+    rows = torch.as_tensor(case.rows, device=cuda_device)
+    cands = torch.as_tensor(case.cands, device=cuda_device)
+    before = dict(dom_kernel.LAUNCHES)
+    got = P.dominated(rows, cands, eps, seg=case.seg)
+    torch.cuda.synchronize()
+    mode = "seg" if case.seg else "all"
+    assert dom_kernel.LAUNCHES == {**before, mode: before[mode] + 1}
+    assert got.device == cands.device and got.dtype == torch.bool
+    assert torch.equal(got, dominated_ref(rows, cands, eps, case.seg))
+    assert torch.equal(got.cpu(), dominated_ref(rows.cpu(), cands.cpu(), eps,
+                                                case.seg))
+
+
+def test_dominance_kernel_refuses_too_many_objectives(cuda_device):
+    k = dom_kernel.MAX_OBJECTIVES + 1
+    rows = torch.zeros((4, k), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="objectives"):
+        P.dominated(rows, rows, P.PARETO_EPS)
+
+
+def _rollup_operands(specs, device):
+    tech = C.calibrated_tech_for_reference()
+    plan = E.plan(specs, tech, config=FULL_LATTICE, device="cpu")
+    out = []
+    for group in plan.groups:
+        packed = E.pack_group([plan.lattices[i] for i in group],
+                              [plan.tables[i] for i in group])
+        tabs, consts, e_ofu, e_align = packed.operands
+
+        def f64(a):
+            return torch.as_tensor(a, dtype=torch.float64, device=device)
+
+        idx = tuple(torch.as_tensor(a, device=device).to(torch.int64)
+                    for a in packed.idx)
+        out.append((idx, tuple(f64(t) for t in tabs), f64(consts),
+                    f64(e_ofu), f64(e_align)))
+    return out
+
+
+def _ppa_fields(ppa) -> dict:
+    """A BatchedPPA's float64 arrays as their bit patterns."""
+    out = {k: getattr(ppa, k) for k in ("mac", "crit", "fmax", "area")}
+    out.update({f"e_cycle.{m}": v for m, v in ppa.e_cycle.items()})
+    out.update({f"breakdown.{k}": v for k, v in ppa.breakdown.items()})
+    return {k: np.ascontiguousarray(v).view(np.uint64)
+            for k, v in out.items()}
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int64),
+                                              b.view(torch.int64))
+
+
+@pytest.mark.parametrize("which", ["scenarios", "spec_variants"])
+def test_rollup_kernel_equals_plain_version(cuda_device, which):
+    """The lattice roll-up kernel against its plain version on the card,
+    every output bit for bit, one launch per spec group: the four scenario
+    specs at the full registered lattice, and a ragged ``spec_variants``
+    request."""
+    from repro_torch.core.shardspec import spec_variants
+    specs = (list(C.scenario_specs().values()) if which == "scenarios"
+             else spec_variants(7, seed=2))
+    groups = _rollup_operands(specs, cuda_device)
+    before = rollup_kernel.LAUNCHES["rollup"]
+    for operands in groups:
+        got = B.eval_lattice(*operands)
+        want = B._eval_kernel(*operands)
+        assert list(got) == list(want)
+        assert list(got["breakdown"]) == list(want["breakdown"])
+        for k in ("mac_base", "ofu_base", "area", "e_cycle"):
+            assert _same_bits(got[k], want[k]), k
+        for k, v in want["breakdown"].items():
+            assert _same_bits(got["breakdown"][k].contiguous(),
+                              v.contiguous()), k
+    assert rollup_kernel.LAUNCHES["rollup"] == before + len(groups)
+
+
+def test_compiler_kernels_launch_once_per_group_and_frontier(cuda_device):
+    """design_space_sweep_many of the four scenario specs launches the
+    roll-up once (one group) and each frontier's mask once, and equals the
+    CPU bit for bit."""
+    tech = C.calibrated_tech_for_reference()
+    specs = list(C.scenario_specs().values())
+    r0, d0 = rollup_kernel.LAUNCHES["rollup"], dict(dom_kernel.LAUNCHES)
+    sweeps = C.design_space_sweep_many(specs, tech, config=FULL_LATTICE,
+                                       device=cuda_device)
+    fronts = [s.frontier_indices() for s in sweeps]
+    assert rollup_kernel.LAUNCHES["rollup"] == r0 + 1
+    assert dom_kernel.LAUNCHES == {"all": d0["all"] + 4, "seg": d0["seg"]}
+    cpu = C.design_space_sweep_many(specs, tech, config=FULL_LATTICE,
+                                    device="cpu")
+    for got, want, front in zip(sweeps, cpu, fronts):
+        for k, v in _ppa_fields(want.ppa).items():
+            np.testing.assert_array_equal(_ppa_fields(got.ppa)[k], v)
+        want.extract_mask = P.nondominated_mask    # the host mask: quicker
+        assert front == want.frontier_indices()
+
+
+def test_sharded_mask_kernel_two_launches_per_entry(cuda_device):
+    """A3 on four entries of the card: one phase-1 and one phase-2 launch
+    per entry, the host mask's bits."""
+    rng = np.random.default_rng(11)
+    objs = rng.random((20_000, 3))
+    mesh = spec_sweep_mesh([f"cuda:{cuda_device.index or 0}"] * 4)
+    before = dict(dom_kernel.LAUNCHES)
+    got = P.nondominated_mask_sharded(objs, mesh=mesh)
+    assert dom_kernel.LAUNCHES == {"all": before["all"] + 4,
+                                   "seg": before["seg"] + 4}
+    np.testing.assert_array_equal(got, P.nondominated_mask(objs))
 
 
 # csa_tree: one row, ragged columns, the macro's 64 rows, past a 128-row
