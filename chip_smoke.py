@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                counts this run uses (one first, alone, for its first-use
                build time), all in parallel; print each kernel's registers
                and spill bytes from its ptxas report (a spill in a
-               ``csa_tree`` or ``dcim_mac`` kernel fails the run, as do a
+               ``csa_tree``, ``dcim_mac`` or ``lattice_rollup`` kernel
+               fails the run, as do a
                ``dcim_mac`` TMA kernel whose wgmma pipeline ptxas
                serialized or, where it has ``setmaxnreg``, whose registers
                are not the 168 its budget assumes);
@@ -22,17 +23,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
                ``mso_search_many`` and ``design_space_sweep_many(...)
                .frontier_indices()`` on the card, through its two CUDA
                kernels (A1 ``lattice_rollup``, one launch per spec group;
-               A2 ``pareto_dominated``, one per frontier; their launch
-               counts set to 0 before and read after), held bit for bit
+               A2 ``pareto_dominated``, one call per frontier, each a
+               screen and a split kernel; their launch counts, by call and
+               by pass, set to 0 before and read after), held bit for bit
                against the same calls with ``device="cpu"`` (the kernels'
                plain versions) and the search results against the scalar
                oracle; the sweep and the frontiers traced again, their
                device busy split into kernels and copies; the dominance
                kernel held against its plain version on the card on the
-               edge sets of ``tests/torch_dominance_cases.py``; each
+               edge sets of ``tests/torch_dominance_cases.py``; for each
+               frontier, the candidates the screen pass left to the split
+               pass, and each pass's time (CUDA events); each
                kernel held against and timed beside its plain version on
                the main path's inputs (A2: the calls of the counted run,
-               recorded as it makes them), with its bound;
+               recorded as it makes them), with its bound and, as its
+               launches, the kernels by pass of the counted run;
   2b. shard    the sharded compiler engine on the card's mesh
                (``spec_sweep_mesh()``, every visible card) and on four
                entries of card 0 (``["cuda:0"] * 4``): a 130-spec request
@@ -45,8 +50,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                equal to the unsharded pass; A3, the sharded frontier mask,
                through ``design_space_sweep_many_sharded`` of the four
                scenario specs on both meshes (the ``pareto_dominated``
-               kernel, one phase-1 and one phase-2 launch per entry and
-               frontier, counted), its frontiers equal to the compiler
+               kernel, one phase-1 and one phase-2 call per entry and
+               frontier, counted by call and by pass; the survivors and
+               the passes' device time of the card's mesh's calls
+               logged), its frontiers equal to the compiler
                phase's and its masks to the host mask, traced (device busy
                and kernels beside A2's), the two phases' calls of its run
                on the card's mesh, recorded as that run makes them, held
@@ -372,7 +379,8 @@ def phase_device() -> None:
             log(f"  {lib.name}: {fn}: {use['registers']} registers, spill "
                 f"stores {use['spill_stores']} B, spill loads "
                 f"{use['spill_loads']} B")
-            check(not lib.name.startswith(("libcsa_tree", "libdcim_mac"))
+            check(not lib.name.startswith(
+                      ("libcsa_tree", "libdcim_mac", "liblattice_rollup"))
                   or use["spill_stores"] == use["spill_loads"] == 0,
                   f"{lib.name} spills")
             if tma_kernel_mode(fn) in ("fused", "compute"):
@@ -490,6 +498,7 @@ def phase_compiler() -> dict:
         if dev == "cuda":          # the main path's launches, counted
             rollup_kernel.LAUNCHES["rollup"] = 0
             dom_kernel.LAUNCHES.update(all=0, seg=0)
+            dom_kernel.PASS_LAUNCHES.update(screen=0, split=0)
             E.add_execute_hook(count_groups)
             record = _recorded_dominance()
         with record as calls:
@@ -510,8 +519,10 @@ def phase_compiler() -> dict:
             E.remove_execute_hook(count_groups)
             launches = {"rollup": rollup_kernel.LAUNCHES["rollup"],
                         **dom_kernel.LAUNCHES}
-            log(f"compiler[cuda]: launches on the main path {launches} "
-                f"({len(groups)} spec groups, {len(fronts)} frontiers)")
+            passes = dict(dom_kernel.PASS_LAUNCHES)
+            log(f"compiler[cuda]: launches on the main path {launches}, "
+                f"dominance kernels by pass {passes} ({len(groups)} spec "
+                f"groups, {len(fronts)} frontiers)")
             check(launches == {"rollup": len(groups), "all": len(fronts),
                                "seg": 0},
                   f"compiler: launches {launches}: want one roll-up per "
@@ -520,6 +531,9 @@ def phase_compiler() -> dict:
             check(len(calls) == len(fronts),
                   f"compiler: {len(calls)} dominance calls recorded for "
                   f"{len(fronts)} frontiers")
+            check(passes == _passes_of(calls),
+                  f"compiler: dominance kernels by pass {passes}, want "
+                  f"{_passes_of(calls)}")
             a2_calls = calls
         log(f"compiler[{dev}]: mso_search_many {t1 - t0:.3f} s, "
             f"design_space_sweep_many {t2 - t1:.3f} s, "
@@ -597,8 +611,10 @@ def phase_compiler() -> dict:
               f"on {case.name}")
     log(f"compiler: pareto_dominated == its plain version on the card on "
         f"{len(cases)} edge sets ({', '.join(c.name for c in cases)})")
+    _dominance_passes("compiler: A2", a2_calls)
+    # the row's launches are kernels (screen and split), not calls
     kernels = [_a1_row(specs, tech, config, launches["rollup"]),
-               _a2_row(a2_calls, launches["all"])]
+               _a2_row(a2_calls, sum(passes.values()))]
     return {"language": res_g[names.index("language")],
             "results": {"cuda": res_g, "cpu": res_c}, "fronts": fr_g,
             "a2_traced": traced["frontier_indices"], "kernels": kernels}
@@ -738,6 +754,60 @@ def _dominance_row(name: str, replaces: str, calls, launches: int,
              "replaces": replaces, "launches": launches, "max_abs_err": err,
              "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
              "library_ms": None}, pairs)
+
+
+def _passes_of(calls) -> dict:
+    """The dominance kernels, by pass, that the recorded ``calls`` launch
+    (:func:`repro_torch.kernels.pareto_dominated.passes` of each)."""
+    from repro_torch.kernels.pareto_dominated import passes
+
+    out = {"screen": 0, "split": 0}
+    for rows, cands, _, seg, _, _ in calls:
+        for name in passes(rows.shape[0], cands.shape[0], seg):
+            out[name] += 1
+    return out
+
+
+def _dominance_passes(label: str, calls, reps: int = 5) -> dict:
+    """The two passes of the dominance kernel on the recorded ``calls``,
+    each call again through the binding ``reps`` times: its verdicts equal
+    to the recorded ones, its survivor count (the candidates the screen
+    pass left to the split pass), and the median time of each pass from
+    the CUDA events the binding records around them (the L2 cache flushed
+    and the device spun before each call, as :func:`_time_ms` does, so
+    that the host's launch work between the events is not counted)."""
+    import torch
+
+    from repro_torch.kernels.pareto_dominated import pareto_dominated_cuda
+    from repro_torch.kernels.timing import FLUSH_BYTES, SPIN_CYCLES
+
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    left, ms = [], {"screen": [], "split": []}
+    for rows, cands, eps, seg, _, got in calls:
+        times = {"screen": [], "split": []}
+        for _ in range(reps):
+            stats = {}
+            flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            again = pareto_dominated_cuda(rows, cands, eps, seg,
+                                          stats=stats)
+            torch.cuda.synchronize()
+            check(torch.equal(again, got), f"{label}: the verdicts of a "
+                  "repeat differ from the main path's")
+            e = stats["events"]
+            times["screen"].append(e[0].elapsed_time(e[1]))
+            times["split"].append(e[1].elapsed_time(e[2]))
+        left.append(int(stats["survivors"].item()))
+        for kind in ms:
+            ms[kind].append(float(np.median(times[kind])))
+    log(f"{label}: {len(calls)} calls of {[c[1].shape[0] for c in calls]} "
+        f"candidates (seg {[c[3] for c in calls]}), "
+        f"{[int((~c[5]).sum()) for c in calls]} not dominated; the screen "
+        f"pass left {left} to the split pass; per call (CUDA events, "
+        f"median of {reps}): screen {[round(x, 6) for x in ms['screen']]} "
+        f"ms, split {[round(x, 6) for x in ms['split']]} ms (sums "
+        f"{sum(ms['screen']):.6f} and {sum(ms['split']):.6f} ms)")
+    return {"survivors": left, "ms": ms}
 
 
 def _a2_row(calls, launches: int) -> dict:
@@ -929,13 +999,15 @@ def phase_shard(compiler: dict) -> list[dict]:
         f"mso_search_many: {', '.join(walls)}")
 
     # 3. A3 at lattice scale: the scenario sweeps' frontiers through the
-    #    sharded mask, on the card's mesh and on four entries; the kernel's
-    #    launches counted around each (two per entry and frontier)
+    #    sharded mask, on the card's mesh and on four entries; the
+    #    binding's calls (two per entry and frontier) and its kernels by
+    #    pass counted around each
     scen = list(C.scenario_specs().values())
     for label, mesh in (("1 entry", card), ("4 entries", four)):
         sweeps = design_space_sweep_many_sharded(scen, tech, config=config,
                                                  mesh=mesh, mode="jit")
         dom_kernel.LAUNCHES.update(all=0, seg=0)
+        dom_kernel.PASS_LAUNCHES.update(screen=0, split=0)
         t0 = time.perf_counter()
         with _recorded_dominance() as calls:
             fronts = [s.frontier_indices() for s in sweeps]
@@ -943,12 +1015,16 @@ def phase_shard(compiler: dict) -> list[dict]:
         torch.cuda.synchronize()
         n_dev = mesh.devices.size
         got = dict(dom_kernel.LAUNCHES)
+        passes = dict(dom_kernel.PASS_LAUNCHES)
         check(got == {"all": 4 * n_dev, "seg": 4 * n_dev}
               and len(calls) == 8 * n_dev,
               f"shard: A3 on {label}: launches {got} from {len(calls)} "
               f"calls, want one per phase, entry and frontier")
+        check(passes == _passes_of(calls),
+              f"shard: A3 on {label}: dominance kernels by pass {passes}, "
+              f"want {_passes_of(calls)}")
         if mesh is card:           # the main path: the card's own mesh
-            a3_calls, a3_launches = calls, got["all"] + got["seg"]
+            a3_calls, a3_launches = calls, sum(passes.values())
         check(fronts == compiler["fronts"],
               f"shard: A3 frontiers on {label} differ from the compiler "
               "phase's")
@@ -964,13 +1040,15 @@ def phase_shard(compiler: dict) -> list[dict]:
         bound, by, pairs = _dominance_bound_ms(calls)
         a2_busy, a2_kernels = compiler["a2_traced"]
         log(f"shard: A3 nondominated_mask_sharded on {label} "
-            f"(4 frontiers): launches {got}; frontier_indices "
+            f"(4 frontiers): launches {got}, by pass {passes}; "
+            f"frontier_indices "
             f"{t_front:.3f} s == the compiler phase's, masks == the host "
             f"mask; traced: device busy {busy:.6f} s over {n_k} device "
             f"events, kernels {k_busy:.6f} s over {k_n} ({wall:.3f} s "
             f"wall; A2 in the compiler phase: {a2_busy:.6f} s over "
             f"{a2_kernels} events); bound {bound:.6f} ms ({by}, {pairs} "
             f"pairs)")
+    _dominance_passes("shard: A3 on 1 entry", a3_calls)
     row, pairs = _dominance_row("pareto_dominated_sharded",
                                 "src/repro/core/pareto.py:164", a3_calls,
                                 a3_launches, plain_reps=5)

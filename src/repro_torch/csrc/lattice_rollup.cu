@@ -33,13 +33,24 @@
 // assertion does.
 //
 // Design.  One thread per (spec, point): grid.y is the spec, and each
-// block of grid.x walks its points in a grid-stride loop.  A spec's tables
+// block of grid.x takes one contiguous range of the points, which its
+// threads walk 256 apart.  The grid is persistent and balanced: as many
+// blocks as the card holds at once (an occupancy query), shared among the
+// specs of the launch, and the ranges are whole 256-point tiles sized so
+// that every block walks the same number of tiles (the last block fewer),
+// so no block starts a tile after the others are done.  A spec's tables
 // are a few hundred doubles (the registered lattice: 579 of them, plus 8
 // constants and the per-mode OFU and alignment energies), so each block
-// stages its spec's rows in shared memory once, and every gather is a
-// shared-memory read.  Each thread reads its point's five indices once
-// and uses them for every output and mode; each output row is written
-// coalesced.  One launch covers a group of specs.
+// stages its spec's rows in shared memory once, every thread loading its
+// share into registers first so that the loads are in flight together;
+// every gather is then a shared-memory read.  A thread's first point's
+// five indices are loaded before the staging, and each next point's
+// before the current one is computed, so their latency hides behind work.
+// The tables' offsets in shared memory are computed once on the host and
+// read from the kernel's parameters, so the kernel keeps no local array
+// and spills nothing.  Each output row is written coalesced, with
+// streaming stores (the outputs are read back by the host, not by a later
+// kernel).  One launch covers a group of specs.
 //
 // Bound on the H100 SXM: the indices read once, the tables read once and
 // (8 + M) float64 outputs per (spec, point) written once at 3.35 TB/s,
@@ -51,12 +62,15 @@
 namespace {
 
 constexpr int kThreads = 256;
-// blocks in flight across the specs of a launch: 8 per SM of the H100's
-// 132
-constexpr int kBlocks = 1056;
+// blocks per SM the register budget is sized for (at most 85 registers a
+// thread)
+constexpr int kMinBlocks = 3;
 constexpr int kTables = 10;
 constexpr int kConsts = 8;
 constexpr int kOutputs = 8;
+constexpr int kIndices = 5;
+// staged doubles a thread holds in registers at once
+constexpr int kStage = 4;
 
 }  // namespace
 
@@ -87,89 +101,131 @@ struct RollupArgs {
 
 namespace {
 
+// Where a block stages its spec's rows in shared memory (doubles): the ten
+// tables, the constants, then the per-mode OFU and alignment energies.
+struct Layout {
+  int tab_off[kTables];
+  int tab_len[kTables];
+  int c_at;
+  int ofu_at;
+  int align_at;
+  int total;
+  int modes;
+  int n_ofu;
+  int n_align;
+};
+
 __device__ __forceinline__ int64_t wrap(int64_t j, int64_t len) {
   if (j < 0) j += len;
   if (j < 0 || j >= len) __trap();
   return j;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    rollup_kernel(const RollupArgs a) {
+// Staged double e of spec s.  The table is picked by comparisons with
+// constant indices into the parameters, so nothing is indexed at run time.
+__device__ __forceinline__ double staged(const RollupArgs& a,
+                                         const Layout& L, int64_t s, int e) {
+  if (e >= L.c_at) {
+    const int f = e - L.c_at;
+    if (f < kConsts) return a.consts[s * kConsts + f];
+    const int g = f - kConsts;
+    const int per_ofu = L.modes * L.n_ofu;
+    return g < per_ofu
+               ? a.e_ofu[s * per_ofu + g]
+               : a.e_align[s * L.modes * L.n_align + (g - per_ofu)];
+  }
+  const double* src = a.tabs[0];
+  int len = L.tab_len[0], off = L.tab_off[0];
+#pragma unroll
+  for (int j = 1; j < kTables; ++j)
+    if (e >= L.tab_off[j]) {
+      src = a.tabs[j];
+      len = L.tab_len[j];
+      off = L.tab_off[j];
+    }
+  return src[s * len + (e - off)];
+}
+
+__device__ __forceinline__ void load_indices(const RollupArgs& a, int64_t p,
+                                             int64_t end,
+                                             int64_t (&raw)[kIndices]) {
+#pragma unroll
+  for (int f = 0; f < kIndices; ++f) raw[f] = p < end ? a.idx[f][p] : 0;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    rollup_kernel(const RollupArgs a, const Layout L, int64_t per_block) {
   extern __shared__ double smem[];
   const int64_t s = blockIdx.y;
+  const int64_t begin = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t end = min(begin + per_block, a.n);
+  int64_t p = begin + threadIdx.x;
 
-  // stage spec s's rows: the ten tables, the constants, then the per-mode
-  // OFU and alignment energies
-  int64_t offset[kTables];
-  int64_t cursor = 0;
+  // this thread's first point's indices, in flight during the staging
+  int64_t raw[kIndices];
+  load_indices(a, p, end, raw);
+
+  for (int base = 0; base < L.total; base += kThreads * kStage) {
+    double v[kStage];
 #pragma unroll
-  for (int j = 0; j < kTables; ++j) {
-    offset[j] = cursor;
-    cursor += a.tab_len[j];
-  }
-  const int64_t c_at = cursor;
-  const int64_t ofu_at = c_at + kConsts;
-  const int64_t align_at = ofu_at + a.modes * a.n_ofu;
-  const int64_t total = align_at + a.modes * a.n_align;
+    for (int u = 0; u < kStage; ++u) {
+      const int e = base + u * kThreads + threadIdx.x;
+      v[u] = e < L.total ? staged(a, L, s, e) : 0.0;
+    }
 #pragma unroll
-  for (int j = 0; j < kTables; ++j)
-    for (int64_t e = threadIdx.x; e < a.tab_len[j]; e += kThreads)
-      smem[offset[j] + e] = a.tabs[j][s * a.tab_len[j] + e];
-  for (int64_t e = threadIdx.x; e < total - c_at; e += kThreads) {
-    const int64_t f = e - kConsts;
-    smem[c_at + e] =
-        e < kConsts ? a.consts[s * kConsts + e]
-        : f < a.modes * a.n_ofu
-            ? a.e_ofu[s * a.modes * a.n_ofu + f]
-            : a.e_align[s * a.modes * a.n_align + (f - a.modes * a.n_ofu)];
+    for (int u = 0; u < kStage; ++u) {
+      const int e = base + u * kThreads + threadIdx.x;
+      if (e < L.total) smem[e] = v[u];
+    }
   }
   __syncthreads();
 
-  const double* c = smem + c_at;
+  const double* c = smem + L.c_at;
   const double apr = c[0], a_sa = c[1], a_drv = c[2], e_wl = c[3],
                e_sa = c[4], e_bl = c[5], eps_fj = c[6], escale = c[7];
   const int64_t row = s * a.n;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       p < a.n; p += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int64_t mem = a.idx[0][p], mm = a.idx[1][p], csa = a.idx[2][p],
-                  ofu = a.idx[3][p], prec = a.idx[4][p];
-    const double t_wl_mm = smem[offset[0] + wrap(mm, a.tab_len[0])],
-                 csa_crit = smem[offset[1] + wrap(csa, a.tab_len[1])],
-                 t_ofu = smem[offset[2] + wrap(ofu, a.tab_len[2])],
-                 a_array = smem[offset[3] + wrap(mem, a.tab_len[3])],
-                 a_mult = smem[offset[4] + wrap(mm, a.tab_len[4])],
-                 a_tree = smem[offset[5] + wrap(csa, a.tab_len[5])],
-                 a_ofu = smem[offset[6] + wrap(ofu, a.tab_len[6])],
-                 a_align = smem[offset[7] + wrap(prec, a.tab_len[7])],
-                 e_mm = smem[offset[8] + wrap(mm, a.tab_len[8])],
-                 e_tree = smem[offset[9] + wrap(csa, a.tab_len[9])];
+  for (; p < end; p += kThreads) {
+    const int64_t mem = raw[0], mm = raw[1], csa = raw[2], ofu = raw[3],
+                  prec = raw[4];
+    const double t_wl_mm = smem[L.tab_off[0] + wrap(mm, L.tab_len[0])],
+                 csa_crit = smem[L.tab_off[1] + wrap(csa, L.tab_len[1])],
+                 t_ofu = smem[L.tab_off[2] + wrap(ofu, L.tab_len[2])],
+                 a_array = smem[L.tab_off[3] + wrap(mem, L.tab_len[3])],
+                 a_mult = smem[L.tab_off[4] + wrap(mm, L.tab_len[4])],
+                 a_tree = smem[L.tab_off[5] + wrap(csa, L.tab_len[5])],
+                 a_ofu = smem[L.tab_off[6] + wrap(ofu, L.tab_len[6])],
+                 a_align = smem[L.tab_off[7] + wrap(prec, L.tab_len[7])],
+                 e_mm = smem[L.tab_off[8] + wrap(mm, L.tab_len[8])],
+                 e_tree = smem[L.tab_off[9] + wrap(csa, L.tab_len[9])];
+    const int64_t oj = wrap(ofu, L.n_ofu), pj = wrap(prec, L.n_align);
+    // the next point's indices, in flight while this one is written
+    load_indices(a, p + kThreads, end, raw);
 
-    a.out[0][row + p] = __dadd_rn(t_wl_mm, csa_crit);
-    a.out[1][row + p] = t_ofu;
+    __stcs(a.out[0] + row + p, __dadd_rn(t_wl_mm, csa_crit));
+    __stcs(a.out[1] + row + p, t_ofu);
     double placed = __dadd_rn(a_array, a_mult);
     placed = __dadd_rn(placed, a_tree);
     placed = __dadd_rn(placed, a_sa);
     placed = __dadd_rn(placed, a_ofu);
     placed = __dadd_rn(placed, a_align);
     placed = __dadd_rn(placed, a_drv);
-    a.out[2][row + p] = __dmul_rn(placed, apr);
-    a.out[3][row + p] = a_array;
-    a.out[4][row + p] = a_mult;
-    a.out[5][row + p] = a_tree;
-    a.out[6][row + p] = a_ofu;
-    a.out[7][row + p] = a_align;
+    __stcs(a.out[2] + row + p, __dmul_rn(placed, apr));
+    __stcs(a.out[3] + row + p, a_array);
+    __stcs(a.out[4] + row + p, a_mult);
+    __stcs(a.out[5] + row + p, a_tree);
+    __stcs(a.out[6] + row + p, a_ofu);
+    __stcs(a.out[7] + row + p, a_align);
 
-    const int64_t oj = wrap(ofu, a.n_ofu), pj = wrap(prec, a.n_align);
-    for (int64_t m = 0; m < a.modes; ++m) {
+    for (int m = 0; m < L.modes; ++m) {
       double e = __dadd_rn(0.0, e_wl);
       e = __dadd_rn(e, e_mm);
       e = __dadd_rn(e, e_tree);
       e = __dadd_rn(e, e_sa);
-      e = __dadd_rn(e, smem[ofu_at + m * a.n_ofu + oj]);
-      e = __dadd_rn(e, smem[align_at + m * a.n_align + pj]);
+      e = __dadd_rn(e, smem[L.ofu_at + m * L.n_ofu + oj]);
+      e = __dadd_rn(e, smem[L.align_at + m * L.n_align + pj]);
       e = __dadd_rn(e, e_bl);
-      a.e_cycle[(s * a.modes + m) * a.n + p] =
-          __dmul_rn(__dmul_rn(e, eps_fj), escale);
+      __stcs(a.e_cycle + (s * L.modes + m) * a.n + p,
+             __dmul_rn(__dmul_rn(e, eps_fj), escale));
     }
   }
 }
@@ -197,7 +253,7 @@ int lattice_rollup(const RollupArgs* args, cudaStream_t stream) {
     if (a.tab_len[j] < 1) return cudaErrorInvalidValue;
   if (a.n == 0 || a.specs == 0) return cudaSuccess;
   const int64_t smem = lattice_rollup_smem_bytes(args);
-  int device = 0, limit = 0;
+  int device = 0, limit = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&limit,
@@ -205,17 +261,46 @@ int lattice_rollup(const RollupArgs* args, cudaStream_t stream) {
                                device);
   if (err != cudaSuccess) return err;
   if (smem > limit) return cudaErrorInvalidValue;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+
+  // the shared-memory layout (it fits in int: smem <= limit)
+  Layout L;
+  int cursor = 0;
+  for (int j = 0; j < kTables; ++j) {
+    L.tab_off[j] = cursor;
+    L.tab_len[j] = static_cast<int>(a.tab_len[j]);
+    cursor += L.tab_len[j];
+  }
+  L.c_at = cursor;
+  L.ofu_at = L.c_at + kConsts;
+  L.align_at = L.ofu_at + static_cast<int>(a.modes * a.n_ofu);
+  L.total = L.align_at + static_cast<int>(a.modes * a.n_align);
+  L.modes = static_cast<int>(a.modes);
+  L.n_ofu = static_cast<int>(a.n_ofu);
+  L.n_align = static_cast<int>(a.n_align);
+
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(rollup_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int64_t per_spec = (kBlocks + a.specs - 1) / a.specs;
-  const int64_t need = (a.n + kThreads - 1) / kThreads;
-  const dim3 grid(static_cast<unsigned>(need < per_spec ? need : per_spec),
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, rollup_kernel, kThreads, static_cast<size_t>(smem));
+  if (err != cudaSuccess) return err;
+  // one wave of blocks shared among the specs, each walking the same
+  // number of whole tiles
+  const int64_t resident =
+      static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+  const int64_t tiles = (a.n + kThreads - 1) / kThreads;
+  const int64_t most = resident / a.specs > 0 ? resident / a.specs : 1;
+  const int64_t walk = (tiles + most - 1) / most;
+  const int64_t blocks = (tiles + walk - 1) / walk;
+  const dim3 grid(static_cast<unsigned>(blocks),
                   static_cast<unsigned>(a.specs));
-  rollup_kernel<<<grid, kThreads, static_cast<size_t>(smem), stream>>>(a);
+  rollup_kernel<<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
+      a, L, walk * kThreads);
   return cudaGetLastError();
 }
 

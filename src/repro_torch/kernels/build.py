@@ -107,18 +107,22 @@ def build_library(name: str, variant: str | None = None) -> Path:
                     _flags(name, variant))
 
 
-def source_library_path(name: str, text: str) -> Path:
-    """Where the library of the generated source ``text`` lives: keyed on
-    the hash of the text, so another text builds anew."""
-    digest = hashlib.sha256(text.encode()).hexdigest()
+def source_library_path(name: str, text: str,
+                        flags: tuple[str, ...] = ()) -> Path:
+    """Where the library of the generated source ``text`` (built with
+    ``flags``) lives: keyed on the hash of the text and the flags, so
+    another text builds anew."""
+    digest = hashlib.sha256((text + " ".join(flags)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_source(name: str, text: str) -> Path:
-    """Compile the generated CUDA source ``text`` unless its library is
-    already built, and return the library's path.  The text is written
-    beside the library as ``<name>-<hash>.cu``."""
-    out = source_library_path(name, text)
+def build_source(name: str, text: str,
+                 flags: tuple[str, ...] = ()) -> Path:
+    """Compile the generated CUDA source ``text`` (with ``flags`` beyond
+    :data:`NVCC_FLAGS`) unless its library is already built, and return
+    the library's path.  The text is written beside the library as
+    ``<name>-<hash>.cu``."""
+    out = source_library_path(name, text, flags)
     if out.exists():
         return out
     src = out.with_name(f"{out.stem[3:]}.cu")
@@ -126,7 +130,7 @@ def build_source(name: str, text: str) -> Path:
     tmp = src.with_name(f"{src.name}.{os.getpid()}.tmp")
     tmp.write_text(text)
     os.replace(tmp, src)
-    return _compile(src, out)
+    return _compile(src, out, flags)
 
 
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")

@@ -49,7 +49,13 @@ class _Args(ctypes.Structure):
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library("lattice_rollup")))
+    return bind(build_library("lattice_rollup"))
+
+
+def bind(path) -> ctypes.CDLL:
+    """The library at ``path`` (a build of ``csrc/lattice_rollup.cu`` or of
+    a variant of its text with the same C interface), loaded and typed."""
+    lib = ctypes.CDLL(str(path))
     lib.lattice_rollup.argtypes = [ctypes.POINTER(_Args), _P]
     lib.lattice_rollup.restype = ctypes.c_int
     lib.lattice_rollup_smem_bytes.argtypes = [ctypes.POINTER(_Args)]

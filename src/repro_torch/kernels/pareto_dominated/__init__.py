@@ -1,3 +1,5 @@
-from .kernel import LAUNCHES, MAX_OBJECTIVES, pareto_dominated_cuda
+from .kernel import (LAUNCHES, MAX_OBJECTIVES, PASS_LAUNCHES, SCREEN_ROWS,
+                     pareto_dominated_cuda, passes)
 
-__all__ = ["LAUNCHES", "MAX_OBJECTIVES", "pareto_dominated_cuda"]
+__all__ = ["LAUNCHES", "MAX_OBJECTIVES", "PASS_LAUNCHES", "SCREEN_ROWS",
+           "pareto_dominated_cuda", "passes"]

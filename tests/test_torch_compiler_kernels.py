@@ -15,7 +15,11 @@ them against their plain versions there).  Here:
   kernel's binding for any other device, shown on the ``meta`` device
   with the binding patched, and a binding's failure propagates instead of
   falling back;
-* ``kernels/build.py`` builds ``lattice_rollup.cu`` with ``-fmad=false``.
+* ``kernels/build.py`` builds ``lattice_rollup.cu`` with ``-fmad=false``;
+* the dominance kernel's two passes as far as the CPU can see them: which
+  passes a call launches (``passes``), the source's constants against the
+  binding's and the edge sets', and the edge sets' witnesses on the
+  boundaries the passes split the rows at.
 
 All comparisons are exact (booleans, float64 bits).
 """
@@ -36,7 +40,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.lattice_rollup import kernel as rollup_kernel
 from repro_torch.kernels.pareto_dominated import kernel as dom_kernel
 from repro_torch.parallel import host_spec_mesh, spec_sweep_mesh
-from torch_dominance_cases import dominance_cases
+from torch_dominance_cases import (boundary_rows, chunk_rows,
+                                   dominance_cases)
 
 EPS = P.PARETO_EPS
 CASES = dominance_cases(EPS, seed=0)
@@ -242,6 +247,81 @@ def test_unpatched_binding_refuses_a_device_other_than_cuda():
     objs = _t(np.zeros((4, 3)), META)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         P.dominated(objs, objs, EPS)
+
+
+# ---------------------------------------------------------------------------
+# The dominance kernel's two passes
+# ---------------------------------------------------------------------------
+
+R = dom_kernel.SCREEN_ROWS
+
+
+@pytest.mark.parametrize("n,c,seg,want", [
+    (0, 5, 0, ("screen",)),
+    (5, 0, 0, ()),
+    (R, 9, 0, ("screen",)),
+    (R + 1, 9, 0, ("screen", "split")),
+    (138_348, 138_348, 0, ("screen", "split")),
+    (5000, 5000, R, ("screen",)),
+    (5000, 5000, R + 1, ("screen", "split")),
+    (R, R, 4 * R, ("screen",)),
+    (R + 1, R + 1, 4 * R, ("screen", "split")),
+])
+def test_passes_a_call_launches(n, c, seg, want):
+    assert dom_kernel.passes(n, c, seg) == want
+
+
+def test_source_constants_equal_the_binding_and_the_edge_sets():
+    import re
+    text = (build.CSRC / "pareto_dominated.cu").read_text()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
+    assert int(const["kScreenRows"]) == dom_kernel.SCREEN_ROWS
+    assert int(const["kMaxObjectives"]) == dom_kernel.MAX_OBJECTIVES
+    few, many = re.search(r"chunk_rows\(\) \{\s*return K <= 4 \? (\d+) "
+                          r": (\d+);\s*\}", text).groups()
+    for k in range(1, dom_kernel.MAX_OBJECTIVES + 1):
+        assert chunk_rows(k) == int(few if k <= 4 else many)
+
+
+def test_edge_sets_reach_both_passes():
+    split = [c.name for c in CASES
+             if "split" in dom_kernel.passes(len(c.rows), len(c.cands),
+                                             c.seg)]
+    for name in ("lone_front", "witness_last_row", "plane_5k",
+                 "antichain_10k", "seg_1500_budget", "inf_pad_survivors",
+                 "nan_survivors", "boundary_witnesses_k2",
+                 "seg_boundary_witnesses"):
+        assert name in split
+    for name in ("n1_c1_same", "seg_512_budget", "seg_1024_budget"):
+        assert name not in split
+
+
+@pytest.mark.parametrize("name", [
+    "boundary_witnesses_k2", "boundary_witnesses_k3",
+    f"boundary_witnesses_k{dom_kernel.MAX_OBJECTIVES}"])
+def test_boundary_witnesses_sit_on_the_boundaries(name):
+    case = next(c for c in CASES if c.name == name)
+    n, k = case.rows.shape
+    at = boundary_rows(n, k)
+    # the sampled rows, the budget, chunk starts and ends, the last row
+    assert {0, R - 1, R, chunk_rows(k) - 1, chunk_rows(k), n - 1} <= set(at)
+    assert (R - 1) * (n // R) in at
+    dom = np.stack([R_pareto.chunk_dominated(case.rows[r:r + 1], case.cands,
+                                             EPS) for r in range(n)])
+    assert [list(np.flatnonzero(dom[:, j])) for j in range(len(at))] == \
+        [[r] for r in at]
+
+
+def test_seg_boundary_witnesses_sit_on_either_side_of_the_budget():
+    case = next(c for c in CASES if c.name == "seg_boundary_witnesses")
+    seg = case.seg
+    at = boundary_rows(seg, 3, seg)
+    assert seg > R and {R - 1, R, seg - 1} <= set(at)
+    for j, w in enumerate(at):
+        blk = case.rows[j * seg:(j + 1) * seg]
+        dom = R_pareto.chunk_dominated(blk[w:w + 1], blk, EPS)
+        assert dom[5] and R_pareto.chunk_dominated(
+            np.delete(blk, w, axis=0), blk[5:6], EPS).tolist() == [False]
 
 
 @pytest.mark.parametrize("k", [9, 12])

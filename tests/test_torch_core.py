@@ -462,7 +462,8 @@ PORT_FILES = sorted(str(p.relative_to(REPO)) for p in
        "examples/torch_serve_decode.py", "examples/torch_train_lm_dcim.py",
        "examples/torch_fault_tolerance_drill.py",
        "examples/torch_pareto_sweep.py", "scripts/torch_make_experiments.py",
-       "tests/torch_dominance_cases.py", "probes/compiler_split.py"]
+       "tests/torch_dominance_cases.py", "probes/compiler_split.py",
+       "probes/rollup_split.py", "probes/dominance_split.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:

@@ -247,19 +247,47 @@ DOMINANCE_CASES = dominance_cases(P.PARETO_EPS, seed=0)
                          ids=[c.name for c in DOMINANCE_CASES])
 def test_dominance_kernel_equals_plain_version(cuda_device, case):
     """The eps-band dominance kernel against its plain version on the card
-    and on the CPU, bit for bit, one launch a call."""
+    and on the CPU, bit for bit: one binding call, and the passes
+    ``passes`` names for it (the split pass where a test is longer than the
+    screen's rows)."""
     eps = P.PARETO_EPS
     rows = torch.as_tensor(case.rows, device=cuda_device)
     cands = torch.as_tensor(case.cands, device=cuda_device)
     before = dict(dom_kernel.LAUNCHES)
+    passes_before = dict(dom_kernel.PASS_LAUNCHES)
     got = P.dominated(rows, cands, eps, seg=case.seg)
     torch.cuda.synchronize()
     mode = "seg" if case.seg else "all"
     assert dom_kernel.LAUNCHES == {**before, mode: before[mode] + 1}
+    ran = dom_kernel.passes(len(case.rows), len(case.cands), case.seg)
+    assert dom_kernel.PASS_LAUNCHES == {
+        k: v + (k in ran) for k, v in passes_before.items()}
     assert got.device == cands.device and got.dtype == torch.bool
     assert torch.equal(got, dominated_ref(rows, cands, eps, case.seg))
     assert torch.equal(got.cpu(), dominated_ref(rows.cpu(), cands.cpu(), eps,
                                                 case.seg))
+
+
+def test_dominance_split_pass_takes_the_screens_survivors(cuda_device):
+    """The survivor count the screen pass leaves: every candidate of an
+    anti-chain (nothing dominates anything), a few of the lone-front set
+    (the one point that dominates all sits on a row the screen does not
+    sample), and none where no split pass runs."""
+    eps = P.PARETO_EPS
+    by_name = {c.name: c for c in DOMINANCE_CASES}
+    for name, check in (("antichain_10k", lambda s, c: s == c),
+                        ("plane_5k", lambda s, c: s == c),
+                        ("lone_front", lambda s, c: 1 <= s < c),
+                        ("seg_1024_budget", lambda s, c: s == 0)):
+        case = by_name[name]
+        rows = torch.as_tensor(case.rows, device=cuda_device)
+        cands = torch.as_tensor(case.cands, device=cuda_device)
+        stats = {}
+        got = dom_kernel.pareto_dominated_cuda(rows, cands, eps, case.seg,
+                                               stats=stats)
+        survivors = int(stats["survivors"].item())
+        assert check(survivors, len(case.cands)), (name, survivors)
+        assert torch.equal(got, dominated_ref(rows, cands, eps, case.seg))
 
 
 def test_dominance_kernel_refuses_too_many_objectives(cuda_device):
@@ -333,11 +361,15 @@ def test_compiler_kernels_launch_once_per_group_and_frontier(cuda_device):
     tech = C.calibrated_tech_for_reference()
     specs = list(C.scenario_specs().values())
     r0, d0 = rollup_kernel.LAUNCHES["rollup"], dict(dom_kernel.LAUNCHES)
+    p0 = dict(dom_kernel.PASS_LAUNCHES)
     sweeps = C.design_space_sweep_many(specs, tech, config=FULL_LATTICE,
                                        device=cuda_device)
     fronts = [s.frontier_indices() for s in sweeps]
     assert rollup_kernel.LAUNCHES["rollup"] == r0 + 1
     assert dom_kernel.LAUNCHES == {"all": d0["all"] + 4, "seg": d0["seg"]}
+    # two kernels per frontier: the screen, then the split
+    assert dom_kernel.PASS_LAUNCHES == {"screen": p0["screen"] + 4,
+                                        "split": p0["split"] + 4}
     cpu = C.design_space_sweep_many(specs, tech, config=FULL_LATTICE,
                                     device="cpu")
     for got, want, front in zip(sweeps, cpu, fronts):
@@ -348,15 +380,21 @@ def test_compiler_kernels_launch_once_per_group_and_frontier(cuda_device):
 
 
 def test_sharded_mask_kernel_two_launches_per_entry(cuda_device):
-    """A3 on four entries of the card: one phase-1 and one phase-2 launch
-    per entry, the host mask's bits."""
+    """A3 on four entries of the card: one phase-1 and one phase-2 call
+    per entry, the host mask's bits.  Phase 1's blocks of 1,024 rows are
+    decided by the screen pass alone; phase 2 (every row) adds the split
+    pass."""
     rng = np.random.default_rng(11)
     objs = rng.random((20_000, 3))
     mesh = spec_sweep_mesh([f"cuda:{cuda_device.index or 0}"] * 4)
     before = dict(dom_kernel.LAUNCHES)
+    passes_before = dict(dom_kernel.PASS_LAUNCHES)
     got = P.nondominated_mask_sharded(objs, mesh=mesh)
     assert dom_kernel.LAUNCHES == {"all": before["all"] + 4,
                                    "seg": before["seg"] + 4}
+    assert dom_kernel.PASS_LAUNCHES == {
+        "screen": passes_before["screen"] + 8,
+        "split": passes_before["split"] + 4}
     np.testing.assert_array_equal(got, P.nondominated_mask(objs))
 
 

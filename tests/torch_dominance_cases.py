@@ -8,6 +8,18 @@ kernel's block or tile; block-local tests (``seg > 0``); and the
 10,000-point two-objective anti-chain, where no point is dominated and
 every candidate scans every row.
 
+Then sets shaped for the kernel's two passes (a screen pass that tests each
+candidate against at most ``SCREEN_ROWS`` rows, spread over the array where
+it is longer, and a split pass that tests the candidates it leaves against
+every row, in chunks of ``chunk_rows(k)`` rows): one point nothing dominates
+among many dominated ones; a witness only in the last row; each candidate's
+only witness exactly at a screen-sample, screen-budget, chunk or last row,
+for two, three and eight objectives; every candidate left to the split
+pass; n not a multiple of the chunk; n = 1 and c = 1; ``seg`` blocks
+shorter than, equal to and longer than the screen budget (with witnesses
+on either side of it); ``+inf`` pad candidates and NaN candidates that the
+screen leaves to the split pass.
+
 :func:`dominance_cases` draws them from a numpy seed, so the CPU tests
 (``test_torch_compiler_kernels.py``), the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` share them.  It imports
@@ -20,7 +32,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-from repro_torch.kernels.pareto_dominated.kernel import MAX_OBJECTIVES
+from repro_torch.kernels.pareto_dominated.kernel import (MAX_OBJECTIVES,
+                                                         SCREEN_ROWS)
 
 
 class DominanceCase(NamedTuple):
@@ -47,6 +60,106 @@ def _tied_front(rng, n: int, eps: float) -> np.ndarray:
     base = np.concatenate([xy, 16 - xy.sum(1, keepdims=True)], axis=1)
     steps = rng.integers(-4, 5, (n, 3)).astype(np.float64) * 0.5
     return base.astype(np.float64) * 1e-3 + steps * eps
+
+
+def chunk_rows(k: int) -> int:
+    """Rows per chunk of the split pass for ``k`` objectives
+    (``chunk_rows<K>()`` in the source)."""
+    return 1024 if k <= 4 else 512
+
+
+def boundary_rows(n: int, k: int, seg: int = 0) -> list[int]:
+    """The rows a test of ``n`` rows (or of a ``seg`` block) starts, ends or
+    changes hands at: the screen's sampled rows and budget, the split
+    pass's chunks, the last row."""
+    chunk = chunk_rows(k)
+    if seg:
+        return sorted({SCREEN_ROWS - 1, SCREEN_ROWS, chunk - 1, chunk,
+                       seg - 1})
+    stride = max(1, n // SCREEN_ROWS)
+    out = {0, stride, SCREEN_ROWS - 1, SCREEN_ROWS, chunk - 1, chunk,
+           2 * chunk - 1, 2 * chunk, (SCREEN_ROWS - 1) * stride,
+           (SCREEN_ROWS - 1) * stride + 1, n - 1}
+    return sorted(r for r in out if 0 <= r < n)
+
+
+def _sole_witnesses(n: int, k: int, at: list[int]) -> tuple[np.ndarray,
+                                                            np.ndarray]:
+    """Rows (n, k) and one candidate per entry of ``at``, whose only
+    witness is row ``at[j]``: the candidates lie on an anti-chain of the
+    first two objectives (the others 0.5), each witness is its candidate
+    moved down the first objective by less than the spacing, and every
+    other row (+10 everywhere) dominates nothing."""
+    x = np.linspace(0.1, 0.9, len(at))
+    cands = np.full((len(at), k), 0.5)
+    cands[:, 0], cands[:, 1] = x, 1.0 - x
+    rows = np.full((n, k), 10.0)
+    rows[at] = cands
+    rows[at, 0] -= 0.25 * (x[1] - x[0]) if len(at) > 1 else 0.1
+    return rows, cands
+
+
+def _two_pass_cases(rng, eps: float) -> list[DominanceCase]:
+    out = []
+    # one point nothing dominates (it dominates every other point) among
+    # 6,000 random ones, at a row the screen does not sample
+    objs = rng.random((6000, 3))
+    objs[3777] = -1.0
+    out.append(DominanceCase("lone_front", objs, objs, 0))
+    # 300 candidates whose only witness is the last of 3,001 rows
+    rows = np.full((3001, 3), 10.0)
+    rows[-1] = 0.0
+    out.append(DominanceCase("witness_last_row", rows,
+                             0.5 + 0.5 * rng.random((300, 3)), 0))
+    # each candidate's only witness at a boundary row
+    for n, k in ((5000, 2), (4100, 3), (2600, MAX_OBJECTIVES)):
+        rows, cands = _sole_witnesses(n, k, boundary_rows(n, k))
+        out.append(DominanceCase(f"boundary_witnesses_k{k}", rows, cands, 0))
+    # every candidate left to the split pass: 5,000 points on the plane
+    # x + y + z = 1, none dominating another
+    plane = rng.dirichlet(np.ones(3), 5000)
+    out.append(DominanceCase("plane_5k", plane, plane, 0))
+    # one row and one candidate
+    one = rng.random((1, 3))
+    out.append(DominanceCase("n1_c1_same", one, one, 0))
+    out.append(DominanceCase("n1_c1_dominated", one, one + 0.5, 0))
+    # seg blocks shorter than, equal to and longer than the screen budget
+    for seg in (SCREEN_ROWS // 2, SCREEN_ROWS, SCREEN_ROWS + 476):
+        objs = np.concatenate([_near_ties(rng, 3 * seg + 211, 3, eps),
+                               np.full((seg - 211, 3), np.inf)])
+        out.append(DominanceCase(f"seg_{seg}_budget", objs, objs, seg))
+    # a seg block longer than the budget whose candidates' only witnesses
+    # sit on either side of it: block j holds candidate j of an anti-chain
+    # at row 5 and its witness at boundary row at[j] of the block, the
+    # other rows +10 (dominated by both)
+    seg = SCREEN_ROWS + 476
+    at = boundary_rows(seg, 3, seg)
+    witnesses, cands = _sole_witnesses(seg, 3, at)
+    blocks = []
+    for j, w in enumerate(at):
+        blk = np.full((seg, 3), 10.0)
+        blk[w], blk[5] = witnesses[w], cands[j]
+        blocks.append(blk)
+    objs = np.concatenate(blocks)
+    out.append(DominanceCase("seg_boundary_witnesses", objs, objs, seg))
+    # a whole test of 1,000 rows whose candidates' only witnesses sit at
+    # every row, so that a warp's open candidates meet theirs anywhere in
+    # the screen's tail, and 24 candidates that nothing dominates
+    rows, cands = _sole_witnesses(1000, 3, list(range(1000)))
+    cands = np.concatenate([cands, np.zeros((24, 3))])
+    out.append(DominanceCase("tail_witnesses", rows, cands, 0))
+    # +inf pad candidates the screen leaves: every sampled row is +inf
+    rows = np.full((3000, 3), np.inf)
+    rows[[1501, 2999]] = rng.random((2, 3))
+    cands = np.concatenate([np.full((200, 3), np.inf),
+                            rng.random((100, 3))])
+    out.append(DominanceCase("inf_pad_survivors", rows, cands, 0))
+    # NaN in candidates that go on to the split pass
+    rows = rng.random((3000, 3))
+    cands = rng.random((100, 3))
+    cands[np.arange(0, 100, 2), rng.integers(0, 3, 50)] = np.nan
+    out.append(DominanceCase("nan_survivors", rows, cands, 0))
+    return out
 
 
 def dominance_cases(eps: float, seed: int = 0) -> list[DominanceCase]:
@@ -89,4 +202,4 @@ def dominance_cases(eps: float, seed: int = 0) -> list[DominanceCase]:
     x = np.linspace(0.0, 1.0, 10_000)
     chain = np.stack([x, 1.0 - x], axis=1)
     out.append(DominanceCase("antichain_10k", chain, chain, 0))
-    return out
+    return out + _two_pass_cases(rng, eps)
