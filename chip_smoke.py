@@ -37,7 +37,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                kernel held against and timed beside its plain version on
                the main path's inputs (A2: the calls of the counted run,
                recorded as it makes them), with its bound and, as its
-               launches, the kernels by pass of the counted run;
+               launches, the kernels by pass of the counted run; then the
+               wide route of the dominance kernels (more objectives than
+               the screen takes, or none): its edge sets (in the loop
+               above) and its own main path, 8,192 near-tie points at 12
+               objectives through ``batched.pareto_mask(device="cuda")``
+               and ``nondominated_mask_sharded`` on four entries of card
+               0, both equal to the host ``nondominated_mask`` bit for bit,
+               its launches counted (``PASS_LAUNCHES["wide"]``, set to 0
+               before and read after), its calls held against and timed
+               beside the plain version, with their bound;
   2b. shard    the sharded compiler engine on the card's mesh
                (``spec_sweep_mesh()``, every visible card) and on four
                entries of card 0 (``["cuda:0"] * 4``): a 130-spec request
@@ -203,8 +212,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
  12. scale     scale-out on the card (``repro_torch.parallel``,
                ``optim.compression``, ``ckpt.elastic``, ``launch.mesh``,
                the launchers under ``torch.distributed.run``).  NCCL
-               refuses two ranks on one card, so every group of ranks here
-               is gloo, each rank's tensors on cuda:0 (printed): (a) which
+               refuses two ranks on one card, so every group of two or
+               more ranks here is gloo, each rank's tensors on cuda:0
+               (printed), and (f) opens the launchers' default NCCL group
+               on one rank: (a) which
                collectives gloo runs on CUDA tensors (all-gather,
                reduce-scatter, all-reduce SUM and MAX, broadcast; float32,
                bfloat16, int32), each result printed, all must be right;
@@ -225,8 +236,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                and onto one device, every leaf bit for bit; (e) ``launch.serve``
                qwen3-4b at full width on a 2x1 mesh of 2 ranks, prompts 4 x
                64, 8 decode steps: the greedy tokens equal the model
-               phase's one-device launch.  (a), (c) and (d)'s save share
-               one group of 4 ranks.  No hand-written kernel runs here:
+               phase's one-device launch; (f) ``launch.train --arch
+               llama3.2-3b --smoke --steps 2`` and ``launch.serve --arch
+               qwen3-4b --smoke`` under ``torch.distributed.run`` on one
+               rank with no ``--backend`` (the default, ``nccl``), the
+               backend each reports printed and required to be ``nccl``,
+               their losses (as printed, within a unit of the last digit)
+               and sampled tokens equal to the same launches without a
+               group.  (a), (c) and (d)'s save share one group of 4
+               ranks.  No hand-written kernel runs here:
                the reference's scale-out path calls none;
  13. dryrun    the dry run (``repro_torch.launch.dryrun``: the port's
                step traced on meta tensors for rank 0 of a fake process
@@ -498,7 +516,7 @@ def phase_compiler() -> dict:
         if dev == "cuda":          # the main path's launches, counted
             rollup_kernel.LAUNCHES["rollup"] = 0
             dom_kernel.LAUNCHES.update(all=0, seg=0)
-            dom_kernel.PASS_LAUNCHES.update(screen=0, split=0)
+            dom_kernel.PASS_LAUNCHES.update(screen=0, split=0, wide=0)
             E.add_execute_hook(count_groups)
             record = _recorded_dominance()
         with record as calls:
@@ -611,13 +629,85 @@ def phase_compiler() -> dict:
               f"on {case.name}")
     log(f"compiler: pareto_dominated == its plain version on the card on "
         f"{len(cases)} edge sets ({', '.join(c.name for c in cases)})")
+    wide = [c.name for c in cases
+            if not 1 <= c.rows.shape[1] <= dom_kernel.MAX_OBJECTIVES]
+    log(f"compiler: of those, the wide route's ({len(wide)}, seg 0 and "
+        f"seg > 0): {', '.join(wide)}")
     _dominance_passes("compiler: A2", a2_calls)
     # the row's launches are kernels (screen and split), not calls
     kernels = [_a1_row(specs, tech, config, launches["rollup"]),
-               _a2_row(a2_calls, sum(passes.values()))]
+               _a2_row(a2_calls, sum(passes.values())),
+               _wide_main_path()]
     return {"language": res_g[names.index("language")],
             "results": {"cuda": res_g, "cpu": res_c}, "fronts": fr_g,
             "a2_traced": traced["frontier_indices"], "kernels": kernels}
+
+
+# The wide route's main path: near-tie points at more objectives than the
+# screen and split kernels take (tests/torch_dominance_cases.py)
+WIDE_POINTS, WIDE_OBJECTIVES = 8192, 12
+
+
+def _wide_main_path() -> dict:
+    """The dominance kernels' wide route on its main path: the public
+    ``batched.pareto_mask(device="cuda")`` (A2's route) and
+    ``nondominated_mask_sharded`` on four entries of card 0 (A3's) over
+    WIDE_POINTS seeded near-tie points at WIDE_OBJECTIVES objectives, each
+    mask equal to the host ``nondominated_mask`` bit for bit; the wide
+    kernel's launches counted around both (set to 0 before, read after),
+    their calls recorded, held against the plain version and timed beside
+    it, with their bound."""
+    import torch
+
+    from repro_torch.core import batched as B
+    from repro_torch.core import pareto as P
+    from repro_torch.kernels.pareto_dominated import kernel as dom_kernel
+    from repro_torch.parallel import spec_sweep_mesh
+    from torch_dominance_cases import wide_tie_points
+
+    objs = wide_tie_points(WIDE_POINTS, WIDE_OBJECTIVES, P.PARETO_EPS, SEED)
+    t0 = time.perf_counter()
+    host = P.nondominated_mask(objs)
+    t_host = time.perf_counter() - t0
+    mesh = spec_sweep_mesh(["cuda:0"] * 4)
+    dom_kernel.LAUNCHES.update(all=0, seg=0)
+    dom_kernel.PASS_LAUNCHES.update(screen=0, split=0, wide=0)
+    with _recorded_dominance() as calls:
+        t0 = time.perf_counter()
+        mask = B.pareto_mask(objs, device="cuda")
+        t1 = time.perf_counter()
+        sharded = P.nondominated_mask_sharded(objs, mesh=mesh)
+        t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    launches = dict(dom_kernel.LAUNCHES)
+    passes = dict(dom_kernel.PASS_LAUNCHES)
+    check(passes == _passes_of(calls) and passes["wide"] == len(calls) > 0,
+          f"compiler: wide route: kernels by pass {passes} from "
+          f"{len(calls)} calls, want {_passes_of(calls)}")
+    check(launches == {"all": 5, "seg": 4},
+          f"compiler: wide route: calls {launches}, want one all-rows call "
+          f"for pareto_mask and two per entry for the sharded mask")
+    kept = int(host.sum())
+    check(0 < kept < len(objs), f"compiler: wide route: {kept} of "
+          f"{len(objs)} points not dominated")
+    check(np.array_equal(mask, host), "compiler: wide route: "
+          "pareto_mask(device='cuda') differs from the host mask")
+    check(np.array_equal(sharded, host), "compiler: wide route: the "
+          "sharded mask on four entries differs from the host mask")
+    row, pairs = _dominance_row("pareto_dominated_wide",
+                                "src/repro/core/pareto.py:52", calls,
+                                passes["wide"], plain_reps=3)
+    log(f"compiler: wide route, {WIDE_POINTS} x {WIDE_OBJECTIVES} near-tie "
+        f"points ({kept} not dominated, {len(objs) - kept} dominated): "
+        f"pareto_mask(device='cuda') {t1 - t0:.6f} s and the sharded mask "
+        f"on 4 entries {t2 - t1:.6f} s of wall, the host mask "
+        f"{t_host:.6f} s; all three equal bit for bit; {len(calls)} calls "
+        f"(seg {[c[3] for c in calls]}), {passes['wide']} wide kernels; "
+        f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, bound "
+        f"{row['bound_ms']:.6f} ms ({row['bound_by']}, the {pairs} pairs "
+        f"these data need); {row['max_abs_err']} verdicts differ from the "
+        f"plain version")
+    return row
 
 
 def _same_bits(a, b) -> bool:
@@ -761,9 +851,10 @@ def _passes_of(calls) -> dict:
     (:func:`repro_torch.kernels.pareto_dominated.passes` of each)."""
     from repro_torch.kernels.pareto_dominated import passes
 
-    out = {"screen": 0, "split": 0}
+    out = {"screen": 0, "split": 0, "wide": 0}
     for rows, cands, _, seg, _, _ in calls:
-        for name in passes(rows.shape[0], cands.shape[0], seg):
+        for name in passes(rows.shape[0], cands.shape[0], seg,
+                           rows.shape[1]):
             out[name] += 1
     return out
 
@@ -1007,7 +1098,7 @@ def phase_shard(compiler: dict) -> list[dict]:
         sweeps = design_space_sweep_many_sharded(scen, tech, config=config,
                                                  mesh=mesh, mode="jit")
         dom_kernel.LAUNCHES.update(all=0, seg=0)
-        dom_kernel.PASS_LAUNCHES.update(screen=0, split=0)
+        dom_kernel.PASS_LAUNCHES.update(screen=0, split=0, wide=0)
         t0 = time.perf_counter()
         with _recorded_dominance() as calls:
             fronts = [s.frontier_indices() for s in sweeps]
@@ -2311,16 +2402,17 @@ F32_TOL_FRAC = 1e-4
 EXPERT_TIE = 1e-6
 
 
-def _launch(launcher: str, args: list[str], ranks: int = 1) -> list[str]:
+def _launch(launcher: str, args: list[str], ranks: int = 1,
+            group: bool = False) -> list[str]:
     """``python -m repro_torch.launch.<launcher>`` on the card in a
     subprocess, under ``torch.distributed.run`` with ``ranks`` processes
-    when there are several; its output lines."""
+    when there are several or ``group`` asks for one; its output lines."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    run = [] if ranks == 1 else ["-m", "torch.distributed.run",
-                                 "--standalone", "--nproc-per-node",
-                                 str(ranks)]
+    run = [] if ranks == 1 and not group else [
+        "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+        str(ranks)]
     proc = subprocess.run([sys.executable] + run + [
                            "-m", f"repro_torch.launch.{launcher}"] + args,
                           capture_output=True, text=True, timeout=900,
@@ -3194,8 +3286,9 @@ def phase_scale(train_loss0: float, serve_sample: list[int]) -> dict:
                          text=True, check=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0]
     log(f"scale: {card}; backend {SCALE_BACKEND}: NCCL refuses two ranks "
-        f"on one card, and this run has one card, so every group of ranks "
-        f"here is gloo with each rank's tensors on cuda:0")
+        f"on one card, and this run has one card, so every group of two or "
+        f"more ranks here is gloo with each rank's tensors on cuda:0; (f) "
+        f"opens the launchers' default NCCL group on one rank")
     work = ROOT / "build" / "scale"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -3320,7 +3413,60 @@ def phase_scale(train_loss0: float, serve_sample: list[int]) -> dict:
         f"{MODEL_PROMPT}, {SCALE_SERVE_DECODE} decode steps: row 0's "
         f"tokens {got} == the model phase's one-device launch; {wall:.3f} s "
         f"with start-up")
+    _default_backend_launches(work)
     return mesh_run
+
+
+def _default_backend_launches(work: Path) -> None:
+    """Phase 12 (f): the launchers with their default backend (``nccl``)
+    under ``torch.distributed.run`` on one rank, against the same launches
+    without a process group; the four launches run at once."""
+    import re
+
+    train = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "2",
+             "--save-every", "1000"]
+    serve = ["--arch", "qwen3-4b", "--smoke"]
+    jobs = {(name, group): (lambda name=name, args=args, group=group:
+                            _launch(name, args + (
+                                ["--ckpt-dir", str(work / f"nccl_{group}")]
+                                if name == "train" else []), group=group))
+            for name, args in (("train", train), ("serve", serve))
+            for group in (True, False)}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        futures = {key: pool.submit(job) for key, job in jobs.items()}
+        out = {key: f.result() for key, f in futures.items()}
+    wall = time.perf_counter() - t0
+    for (name, group), lines in out.items():
+        log(f"  launch.{name} {'one NCCL rank' if group else 'no group'}:")
+        for line in lines:
+            log(f"    {line}")
+    for name in ("train", "serve"):
+        backends = [ln for ln in out[name, True] if ln.startswith("group:")]
+        check(backends == ["group: backend nccl, world 1"],
+              f"scale (f): launch.{name} on one rank reports {backends}, "
+              f"want the default backend nccl")
+        check(not any(ln.startswith("group:") for ln in out[name, False]),
+              f"scale (f): launch.{name} without a group reports one")
+    losses = {g: {int(m[1]): float(m[2]) for m in
+                  (re.match(r"step +(\d+) loss=(\S+)", ln)
+                   for ln in out["train", g]) if m} for g in (True, False)}
+    check(sorted(losses[True]) == sorted(losses[False]) == [0, 1]
+          and all(abs(losses[True][s] - losses[False][s]) <= 1e-4
+                  for s in (0, 1)),
+          f"scale (f): launch.train losses on one NCCL rank {losses[True]}, "
+          f"without a group {losses[False]}")
+    samples = {g: [ln for ln in out["serve", g] if ln.startswith("sample:")]
+               for g in (True, False)}
+    check(len(samples[True]) == 1 and samples[True] == samples[False],
+          f"scale (f): launch.serve samples on one NCCL rank "
+          f"{samples[True]}, without a group {samples[False]}")
+    log(f"scale (f): launch.train {TRAIN_ARCH} smoke (2 steps) and "
+        f"launch.serve qwen3-4b smoke under torch.distributed.run on one "
+        f"rank with the default backend: each reports nccl; losses "
+        f"{losses[True]} == {losses[False]} without a group (within a unit "
+        f"of the last printed digit), {samples[True][0]} == without a "
+        f"group; the four launches at once in {wall:.3f} s")
 
 
 # ---------------------------------------------------------------------------

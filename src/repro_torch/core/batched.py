@@ -815,13 +815,17 @@ def _evaluated(spec: MacroSpec, tech: TechModel, config: LatticeConfig,
 
 def pareto_mask(objs: np.ndarray, eps: float = PARETO_EPS,
                 chunk: int = 512, device=None) -> np.ndarray:
-    """Non-dominated mask over an (n, k) objective matrix (minimization),
-    every point tested against every point on ``device`` through
-    :func:`repro_torch.core.pareto.dominated`: on a CUDA card in one kernel
-    launch, which keeps no (chunk, n) mask; on the CPU by the plain version
-    in chunks of ``chunk`` points, so lattice-sized sweeps stay in memory
-    (size the chunk with :func:`repro_torch.core.pareto.
-    pareto_chunk_size`).  Dominance semantics match
+    """Non-dominated mask over an (n, k) objective matrix (minimization) on
+    ``device``, through :func:`repro_torch.core.pareto.dominated`.  On a
+    CUDA card every point is tested against every point in one call of the
+    kernels, which keep no (chunk, n) mask.  On the CPU the plain version
+    runs the reference's exact two-phase host mask (``nondominated_mask``):
+    each block of ``chunk`` points against itself (a point dominated inside
+    its block is dominated: the witness is a real row), then the points
+    that survive against every point, in chunks of ``chunk``, so
+    lattice-sized sweeps stay in memory (size the chunk with
+    :func:`repro_torch.core.pareto.pareto_chunk_size`).  Both give the
+    all-pairs verdicts.  Dominance semantics match
     :func:`repro_torch.core.pareto.dominates` through the shared
     :data:`repro_torch.core.pareto.PARETO_EPS` band — near-tie objectives
     land on the same frontier in the scalar and batched paths by
@@ -832,7 +836,12 @@ def pareto_mask(objs: np.ndarray, eps: float = PARETO_EPS,
         return np.ones(0, dtype=bool)
     all_o = torch.as_tensor(objs, dtype=torch.float64,
                             device=resolve_device(device))
-    return ~dominated(all_o, all_o, eps, chunk=chunk).cpu().numpy()
+    if all_o.device.type != "cpu":
+        return ~dominated(all_o, all_o, eps, chunk=chunk).cpu().numpy()
+    out = dominated(all_o, all_o, eps, seg=chunk)
+    survivors = torch.nonzero(~out).flatten()
+    out[survivors] = dominated(all_o, all_o[survivors], eps, chunk=chunk)
+    return ~out.numpy()
 
 
 # ---------------------------------------------------------------------------

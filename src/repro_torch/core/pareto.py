@@ -18,8 +18,9 @@ verdicts (bit-identical masks, same output order):
                                      (lattice-scale frontiers).
 
 The two device tiers test through :func:`dominated`: on a CUDA card the
-hand-written kernel (``csrc/pareto_dominated.cu``), one launch per call; on
-the CPU its plain version, :func:`chunk_dominated` per chunk.
+hand-written kernels (``csrc/pareto_dominated.cu``), for any number of
+objectives; on the CPU its plain version, :func:`chunk_dominated` per
+chunk.
 """
 
 from __future__ import annotations
@@ -58,16 +59,20 @@ def chunk_dominated(all_o, blk, eps):
     some row of ``all_o`` dominates ``blk[i]`` under exactly the
     :func:`dominates` semantics.  This is the *single* implementation of the
     vectorized predicate: :func:`nondominated_mask` runs it on numpy arrays,
-    the batched engine's ``pareto_mask`` on torch tensors on the device.
+    :func:`dominated_ref` on torch tensors.
 
-    The masks are seeded from the first objective's comparison rather than
-    allocated, so they land on the operands' device whatever their type."""
-    k = blk.shape[1]
-    le = all_o[None, :, 0] <= blk[:, None, 0] + eps
-    lt = all_o[None, :, 0] < blk[:, None, 0] - eps
-    for d in range(1, k):
-        le = le & (all_o[None, :, d] <= blk[:, None, d] + eps)
-        lt = lt | (all_o[None, :, d] < blk[:, None, d] - eps)
+    The masks are seeded as the reference's are, ``le`` all True and ``lt``
+    all False, of the operands' type (numpy or torch) and on their device,
+    so that with no objective no row dominates."""
+    c, n = blk.shape[0], all_o.shape[0]
+    if isinstance(blk, torch.Tensor):
+        le = torch.ones((c, n), dtype=torch.bool, device=blk.device)
+        lt = torch.zeros((c, n), dtype=torch.bool, device=blk.device)
+    else:
+        le, lt = np.ones((c, n), dtype=bool), np.zeros((c, n), dtype=bool)
+    for d in range(blk.shape[1]):
+        le &= all_o[None, :, d] <= blk[:, None, d] + eps
+        lt |= all_o[None, :, d] < blk[:, None, d] - eps
     return (le & lt).any(1)
 
 
@@ -104,9 +109,10 @@ def dominated(rows: torch.Tensor, cands: torch.Tensor,
     phase 1; rows and candidates then have one count).
 
     CPU tensors run the plain version (:func:`dominated_ref`, in chunks of
-    ``chunk`` candidates); any other device the CUDA kernel
-    (:mod:`repro_torch.kernels.pareto_dominated`), one launch for all
-    candidates, or raises: it never falls back to the plain version."""
+    ``chunk`` candidates); any other device the CUDA kernels
+    (:mod:`repro_torch.kernels.pareto_dominated`), one call for all
+    candidates at any number of objectives, or raises: it never falls back
+    to the plain version."""
     if rows.device.type == "cpu" and cands.device.type == "cpu":
         return dominated_ref(rows, cands, eps, seg, chunk)
     from ..kernels.pareto_dominated.kernel import pareto_dominated_cuda

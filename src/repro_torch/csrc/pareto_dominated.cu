@@ -27,12 +27,13 @@
 // candidate is declared not dominated: the booleans equal the plain
 // version's.
 //
-// Design: two passes, launched back to back on one stream with no host
-// round trip between them.  Both compare through a float32 prefilter: a
-// row x can dominate only if, for every d, x[d] rounded down to float32 is
-// <= upper[d] rounded up (x <= upper implies it, a NaN fails it), so only
-// the rows that pass are tested in float64, where the verdict is made; the
-// float64 comparisons run at a fraction of the card's FP64 rate.  All
+// Design, for 1 to kMaxObjectives objectives: two passes, launched back
+// to back on one stream with no host round trip between them.  Both
+// compare through a float32 prefilter: a row x can dominate only if, for
+// every d, x[d] rounded down to float32 is <= upper[d] rounded up (x <=
+// upper implies it, a NaN fails it), so only the rows that pass are
+// tested in float64, where the verdict is made; the float64 comparisons
+// run at a fraction of the card's FP64 rate.  All
 // comparisons combine with & and |, never && and ||, which would put a
 // branch and a load between every two.
 //
@@ -88,6 +89,17 @@
 //    two items that both store true store the same value, so the races
 //    are harmless.
 //
+// 3. Wide (wide_kernel), for more than kMaxObjectives objectives and for
+//    none: one launch, the whole test in float64 with no prefilter.  A
+//    warp takes one candidate at a time from a device queue, stages its
+//    bounds in shared memory where they fit (kWideStage objectives; more
+//    are read from global memory and rounded again, to the same bits),
+//    and its lanes stride the rows of its test, one row a lane a step,
+//    each comparing all k objectives of its row; __any_sync after each
+//    step stops the warp at the first witness.  Row offsets are 64-bit.
+//    With k = 0 no row is read: no objective can be strictly better, so
+//    every verdict is false, as the plain version's.
+//
 // Bound on the H100 SXM: two float64 comparisons per objective per pair
 // tested, at 64 FP64 lanes per SM, against the objectives read once and
 // the verdicts written once: operations bound it at lattice scale, and the
@@ -111,6 +123,7 @@ constexpr int kMaxObjectives = 8;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWaves = 4;                // split: items per resident block
+constexpr int kWideStage = 64;           // wide: objectives staged per warp
 constexpr unsigned kFull = 0xffffffffu;
 
 // split: rows per chunk (a buffer of at most 32 KB)
@@ -842,6 +855,86 @@ cudaError_t launch_split(const double* rows, int64_t n, const double* cands,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 3. wide
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    wide_kernel(const double* __restrict__ rows, int64_t n,
+                const double* __restrict__ cands, int64_t c, int64_t k,
+                double eps, int64_t seg, bool* __restrict__ out,
+                unsigned long long* __restrict__ queue) {
+  __shared__ double staged[kWarps][2][kWideStage];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool in_smem = k <= kWideStage;
+  double* upper = staged[warp][0];
+  double* lower = staged[warp][1];
+  for (;;) {
+    unsigned long long got = 0;
+    if (lane == 0) got = atomicAdd(queue, 1ull);
+    const int64_t i =
+        static_cast<int64_t>(__shfl_sync(kFull, got, 0));
+    if (i >= c) break;
+    const double* cand = cands + i * k;
+    if (in_smem) {
+      __syncwarp();                    // the last candidate's bounds read
+      for (int64_t d = lane; d < k; d += 32) {
+        upper[d] = __dadd_rn(cand[d], eps);
+        lower[d] = __dsub_rn(cand[d], eps);
+      }
+      __syncwarp();
+    }
+    int64_t lo = 0, hi = n;
+    if (seg > 0) {
+      lo = i / seg * seg;
+      hi = min(lo + seg, n);
+    }
+    bool found = false;
+    // k = 0: no row can be strictly better in some objective
+    for (int64_t r0 = lo; k > 0 && r0 < hi && !found; r0 += 32) {
+      const int64_t r = r0 + lane;
+      bool hit = false;
+      if (r < hi) {
+        const double* x = rows + r * k;
+        bool le = true, lt = false;
+        if (in_smem) {
+#pragma unroll 4
+          for (int64_t d = 0; d < k; ++d) {
+            const double v = x[d];
+            le &= v <= upper[d];
+            lt |= v < lower[d];
+          }
+        } else {
+#pragma unroll 4
+          for (int64_t d = 0; d < k; ++d) {
+            const double v = x[d], cd = cand[d];
+            le &= v <= __dadd_rn(cd, eps);
+            lt |= v < __dsub_rn(cd, eps);
+          }
+        }
+        hit = le & lt;
+      }
+      found = __any_sync(kFull, hit);
+    }
+    if (lane == 0) out[i] = found;
+  }
+}
+
+cudaError_t launch_wide(const double* rows, int64_t n, const double* cands,
+                        int64_t c, int64_t k, double eps, int64_t seg,
+                        bool* out, unsigned long long* queue,
+                        cudaStream_t stream) {
+  int blocks = 0;
+  cudaError_t err = resident_blocks(wide_kernel, 0, &blocks);
+  if (err != cudaSuccess) return err;
+  // a warp per candidate at most
+  const int64_t work = (c + kWarps - 1) / kWarps;
+  const unsigned grid = static_cast<unsigned>(work < blocks ? work : blocks);
+  wide_kernel<<<grid, kThreads, 0, stream>>>(rows, n, cands, c, k, eps, seg,
+                                             out, queue);
+  return cudaGetLastError();
+}
+
 bool valid(int64_t n, int64_t c, int64_t seg) {
   return n >= 0 && c >= 0 && seg >= 0 && n <= INT32_MAX && c <= INT32_MAX;
 }
@@ -856,6 +949,9 @@ int pareto_dominated_max_objectives() { return kMaxObjectives; }
 // The most rows the screen pass tests a candidate against.
 int pareto_dominated_screen_rows() { return kScreenRows; }
 
+// The most objectives whose bounds the wide kernel stages in shared memory.
+int pareto_dominated_wide_stage() { return kWideStage; }
+
 // The screen pass: dominated (c,) bool for candidates (c, k) against rows
 // (n, k), float64, contiguous, on the device; seg > 0 tests candidate i
 // only against rows [i / seg * seg, i / seg * seg + seg).  A candidate
@@ -864,7 +960,8 @@ int pareto_dominated_screen_rows() { return kScreenRows; }
 // in count[0], and count[2] is its queue; count[0..2] must be 0.
 // Launches one kernel on `stream`
 // and returns its CUDA error code (0 on success; cudaErrorInvalidValue for
-// k outside 1..kMaxObjectives or a count outside 0..2^31 - 1).
+// k outside 1..kMaxObjectives, which pareto_dominated_wide takes, or a
+// count outside 0..2^31 - 1).
 int pareto_dominated_screen(const double* rows, int64_t n,
                             const double* cands, int64_t c, int k,
                             double eps, int64_t seg, bool* out,
@@ -905,6 +1002,21 @@ int pareto_dominated_split(const double* rows, int64_t n,
 #undef CASE
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The wide kernel, for any objective count k >= 0 (the binding sends it
+// k > kMaxObjectives and k = 0): dominated (c,) bool for candidates (c, k)
+// against rows (n, k), float64, contiguous, on the device, with seg as
+// above; `queue` (one 64-bit counter) must be 0.  Launches one kernel on
+// `stream` and returns its CUDA error code (cudaErrorInvalidValue for k < 0
+// or a count outside 0..2^31 - 1).
+int pareto_dominated_wide(const double* rows, int64_t n,
+                          const double* cands, int64_t c, int k,
+                          double eps, int64_t seg, bool* out,
+                          unsigned long long* queue, cudaStream_t stream) {
+  if (!valid(n, c, seg) || k < 0) return cudaErrorInvalidValue;
+  if (c == 0) return cudaSuccess;
+  return launch_wide(rows, n, cands, c, k, eps, seg, out, queue, stream);
 }
 
 const char* pareto_dominated_error_string(int err) {

@@ -7,12 +7,13 @@ a variant of its text the same way).  :func:`pareto_dominated_cuda`
 checks its operands, allocates the verdicts with ``torch.empty`` and the
 passes' scratch (counters, the survivor list and its done flags) with
 ``torch.zeros`` on the operands' device,
-launches the screen pass and, where some candidate's test is longer than
-:data:`SCREEN_ROWS` rows, the split pass on torch's current stream
-without synchronising (the split pass reads the survivor count on the
-device), raises if a launch was refused, and counts: one in
-:data:`LAUNCHES` under its mode per call, one in :data:`PASS_LAUNCHES`
-per kernel launched.  It takes CUDA tensors only:
+launches, for 1 to :data:`MAX_OBJECTIVES` objectives, the screen pass
+and, where some candidate's test is longer than :data:`SCREEN_ROWS` rows,
+the split pass on torch's current stream without synchronising (the split
+pass reads the survivor count on the device), and for any other count (more
+objectives, or none) the wide kernel alone; it raises if a launch was
+refused, and counts: one in :data:`LAUNCHES` under its mode per call, one
+in :data:`PASS_LAUNCHES` per kernel launched.  It takes CUDA tensors only:
 the dispatcher :func:`repro_torch.core.pareto.dominated` runs the plain
 version for CPU tensors.
 """
@@ -31,15 +32,21 @@ from ..build import build_library
 #: phase 1).  Added to where the call launches its kernels.
 LAUNCHES = {"all": 0, "seg": 0}
 
-#: Kernel launches, by pass: ``screen`` (every call with candidates) and
-#: ``split`` (a call some of whose tests are longer than
-#: :data:`SCREEN_ROWS`: see :func:`passes`).  Added to where each kernel
-#: is launched.
-PASS_LAUNCHES = {"screen": 0, "split": 0}
+#: Kernel launches, by pass: ``screen`` (every call with candidates and 1
+#: to :data:`MAX_OBJECTIVES` objectives), ``split`` (such a call some of
+#: whose tests are longer than :data:`SCREEN_ROWS`) and ``wide`` (a call
+#: with candidates and any other objective count): see :func:`passes`.
+#: Added to where each kernel is launched.
+PASS_LAUNCHES = {"screen": 0, "split": 0, "wide": 0}
 
-#: The largest objective count the kernel takes (``kMaxObjectives`` in the
-#: source); more raise ``ValueError``.
+#: The largest objective count the screen and split kernels take
+#: (``kMaxObjectives`` in the source); more, and none, go to the wide
+#: kernel.
 MAX_OBJECTIVES = 8
+
+#: The most objectives whose bounds the wide kernel stages in shared
+#: memory (``kWideStage`` in the source); it reads more from global memory.
+WIDE_STAGE = 64
 
 #: The most rows the screen pass tests a candidate against
 #: (``kScreenRows`` in the source).
@@ -49,14 +56,17 @@ SCREEN_ROWS = 1024
 COUNTERS = 3
 
 
-def passes(n: int, c: int, seg: int = 0) -> tuple[str, ...]:
+def passes(n: int, c: int, seg: int = 0, k: int = 1) -> tuple[str, ...]:
     """The kernels one call of :func:`pareto_dominated_cuda` launches for
-    ``n`` rows, ``c`` candidates and ``seg``: none without candidates, the
-    screen alone where every candidate's test (``n`` rows, or its block of
-    ``min(seg, n)``) is at most :data:`SCREEN_ROWS` rows, and the screen
-    then the split otherwise."""
+    ``n`` rows, ``c`` candidates, ``seg`` and ``k`` objectives: none
+    without candidates; the wide kernel alone for ``k`` outside 1 to
+    :data:`MAX_OBJECTIVES`; else the screen alone where every candidate's
+    test (``n`` rows, or its block of ``min(seg, n)``) is at most
+    :data:`SCREEN_ROWS` rows, and the screen then the split otherwise."""
     if c == 0:
         return ()
+    if not 1 <= k <= MAX_OBJECTIVES:
+        return ("wide",)
     longest = min(seg, n) if seg else n
     return ("screen", "split") if longest > SCREEN_ROWS else ("screen",)
 
@@ -78,16 +88,20 @@ def bind(path) -> ctypes.CDLL:
     lib.pareto_dominated_screen.argtypes = operands + [ctypes.c_void_p]
     lib.pareto_dominated_split.argtypes = operands + [ctypes.c_void_p] * 2
     lib.pareto_dominated_screen.restype = ctypes.c_int
+    lib.pareto_dominated_wide.argtypes = operands[:-2] + [ctypes.c_void_p] * 2
     lib.pareto_dominated_split.restype = ctypes.c_int
+    lib.pareto_dominated_wide.restype = ctypes.c_int
     lib.pareto_dominated_max_objectives.restype = ctypes.c_int
     lib.pareto_dominated_screen_rows.restype = ctypes.c_int
+    lib.pareto_dominated_wide_stage.restype = ctypes.c_int
     lib.pareto_dominated_error_string.argtypes = [ctypes.c_int]
     lib.pareto_dominated_error_string.restype = ctypes.c_char_p
     if (lib.pareto_dominated_max_objectives() != MAX_OBJECTIVES
-            or lib.pareto_dominated_screen_rows() != SCREEN_ROWS):
+            or lib.pareto_dominated_screen_rows() != SCREEN_ROWS
+            or lib.pareto_dominated_wide_stage() != WIDE_STAGE):
         raise RuntimeError("pareto_dominated.cu and its binding disagree "
-                           "on the largest objective count or the screen "
-                           "pass's rows")
+                           "on the largest objective count, the screen "
+                           "pass's rows or the wide kernel's staging")
     return lib
 
 
@@ -112,7 +126,8 @@ def pareto_dominated_cuda(rows: torch.Tensor, cands: torch.Tensor,
     where no split pass ran), and ``"events"``: three CUDA events recorded
     on the stream before the screen, between the passes and after the
     split, whose ``elapsed_time`` gives each pass's time.  Read both after
-    the call's work is done."""
+    the call's work is done.  The wide kernel (``k`` outside 1 to
+    :data:`MAX_OBJECTIVES`) fills no ``stats``."""
     for name, t in (("rows", rows), ("cands", cands)):
         if t.dim() != 2:
             raise ValueError(f"{name} must be (count, k), got "
@@ -121,9 +136,6 @@ def pareto_dominated_cuda(rows: torch.Tensor, cands: torch.Tensor,
     if cands.shape[1] != k:
         raise ValueError(f"rows have {k} objectives, cands "
                          f"{cands.shape[1]}")
-    if not 1 <= k <= MAX_OBJECTIVES:
-        raise ValueError(f"the kernel takes 1 to {MAX_OBJECTIVES} "
-                         f"objectives, got {k}")
     if seg < 0:
         raise ValueError(f"seg must be >= 0, got {seg}")
     if seg and n != c:
@@ -143,8 +155,12 @@ def pareto_dominated_cuda(rows: torch.Tensor, cands: torch.Tensor,
         raise ValueError(f"the kernel takes at most 2^31 - 1 rows and "
                          f"candidates, got {n} and {c}")
     out = torch.empty(c, dtype=torch.bool, device=cands.device)
-    todo = passes(n, c, seg)
+    todo = passes(n, c, seg, k)
     if not todo:
+        return out
+    if todo == ("wide",):
+        _wide(rows, cands, k, eps, seg, out)
+        LAUNCHES["seg" if seg else "all"] += 1
         return out
     # int32: [survivor count, split work counter, screen queue], then,
     # where a split pass runs, the survivors (c) and their done flags (c
@@ -180,3 +196,16 @@ def pareto_dominated_cuda(rows: torch.Tensor, cands: torch.Tensor,
     if stats is not None:
         stats.update(survivors=scratch[:1], events=events)
     return out
+
+
+def _wide(rows, cands, k, eps, seg, out) -> None:
+    """The wide kernel into ``out``: one launch on torch's current stream,
+    its queue (one int64) zeroed on the card."""
+    (n, c), lib = (rows.shape[0], cands.shape[0]), _lib()
+    queue = torch.zeros(1, dtype=torch.int64, device=cands.device)
+    with torch.cuda.device(cands.device):
+        stream = torch.cuda.current_stream(cands.device).cuda_stream
+        _raise_on(lib, lib.pareto_dominated_wide(
+            rows.data_ptr(), n, cands.data_ptr(), c, k, float(eps), seg,
+            out.data_ptr(), queue.data_ptr(), stream), "wide")
+    PASS_LAUNCHES["wide"] += 1

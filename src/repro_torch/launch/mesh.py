@@ -10,7 +10,8 @@ place of the visible device count: a shape wider than the world shrinks to
 shape is returned as ``{axis: size}`` and no mesh is built (a world of one
 needs no process group).  :func:`init_distributed` starts the process
 group from ``torch.distributed.run``'s environment, with the backend the
-caller names.
+caller names, and :func:`group_line` reports the group's backend after a
+barrier of every rank.
 """
 
 from __future__ import annotations
@@ -109,6 +110,17 @@ def init_distributed(backend: str, device=None) -> torch.device:
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method="env://")
     return dev
+
+
+def group_line() -> str | None:
+    """``group: backend <name>, world <size>`` after a barrier of every
+    rank (a collective on the group's backend, where the run made none),
+    or None outside a process group.  Every rank calls it."""
+    if not dist.is_initialized():
+        return None
+    dist.barrier()
+    return (f"group: backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
 
 
 def is_main() -> bool:

@@ -39,7 +39,8 @@ serving): the parameters are placed by the logical rules and gathered whole
 per block as it runs, the prompt batch splits over the batch ranks (each
 rank's decode state holds its own rows; a MoE layer whose token groups
 would span them gathers the global batch, :mod:`repro_torch.models.moe`),
-and rank 0 gathers the greedy tokens and prints the reference's lines.
+and rank 0 gathers the greedy tokens and prints the reference's lines,
+then the group's backend (:func:`repro_torch.launch.mesh.group_line`).
 ``--dcim-select`` runs on rank 0 alone: like the reference's, it reports
 the selection and changes nothing the ranks run.  A mesh wider than the
 world shrinks by the reference's rule
@@ -61,8 +62,8 @@ from ..models import get_model
 from ..serve import make_decode_step, make_prefill
 from ..serve.config import serve_config_from_args
 from ..serve.step import greedy_argmax
-from .mesh import (BACKENDS, init_distributed, is_main, make_host_mesh,
-                   mesh_dims, parse_mesh)
+from .mesh import (BACKENDS, group_line, init_distributed, is_main,
+                   make_host_mesh, mesh_dims, parse_mesh)
 
 
 def device_name(device: torch.device) -> str:
@@ -294,6 +295,7 @@ def main(argv: list[str] | None = None) -> None:
     if ranks is not None:
         from ..parallel.zero import gather_rows
         tokens = gather_rows(tokens, ranks, baxes)
+    group = group_line()
     if not main_rank:
         dist.destroy_process_group()
         return
@@ -307,6 +309,8 @@ def main(argv: list[str] | None = None) -> None:
     print(f"decode : {n_tok} tokens in {t_decode:.2f}s "
           f"({n_tok / max(t_decode, 1e-9):.1f} tok/s) on {name}")
     print("sample:", tokens[0, :16].cpu().numpy())
+    if group is not None:
+        print(group)
 
     if dcim.trace is not None:
         from ..obs import tracer

@@ -25,8 +25,9 @@ one-device draw, and every step takes the global batch
 (:mod:`repro_torch.train.step`).  A mesh wider than the world shrinks by
 the reference's rule (:func:`repro_torch.launch.mesh.make_host_mesh`); a
 mesh of one rank is the one-device path.  Rank 0 prints the reference's
-lines and writes the checkpoints, which hold the global arrays, so a run
-saved on one mesh resumes on another (the restored global arrays are
+lines, then the group's backend (:func:`repro_torch.launch.mesh.
+group_line`), and writes the checkpoints, which hold the global arrays, so
+a run saved on one mesh resumes on another (the restored global arrays are
 placed by :func:`repro_torch.ckpt.elastic.reshard_tree`).  ``--tuned`` sets
 ``act_shard``, the reference's activation constraints; in the port they
 change nothing, since its activations are never sharded
@@ -51,8 +52,8 @@ from ..optim.adamw import AdamWConfig
 from ..optim.schedules import linear_warmup_cosine
 from ..parallel import collectives as C
 from ..train.step import init_train_state, make_train_step
-from .mesh import (BACKENDS, init_distributed, is_main, make_host_mesh,
-                   mesh_dims, parse_mesh)
+from .mesh import (BACKENDS, group_line, init_distributed, is_main,
+                   make_host_mesh, mesh_dims, parse_mesh)
 from .serve import _sync
 
 
@@ -190,7 +191,9 @@ def main(argv: list[str] | None = None) -> None:
         print(f"trained {args.steps - start} steps in "
               f"{time.time() - t0:.1f}s")
     if dist.is_initialized():
-        dist.barrier()
+        line = group_line()
+        if main_rank:
+            print(line, flush=True)
         dist.destroy_process_group()
 
 

@@ -19,7 +19,11 @@ them against their plain versions there).  Here:
 * the dominance kernel's two passes as far as the CPU can see them: which
   passes a call launches (``passes``), the source's constants against the
   binding's and the edge sets', and the edge sets' witnesses on the
-  boundaries the passes split the rows at.
+  boundaries the passes split the rows at; the wide kernel's objective
+  counts (more than ``MAX_OBJECTIVES``, and none) past the binding's
+  objective check;
+* the CPU route of ``batched.pareto_mask`` (two passes of the plain
+  version) against the plain version over all pairs on every edge set.
 
 All comparisons are exact (booleans, float64 bits).
 """
@@ -67,8 +71,19 @@ def _reference_verdicts(case) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for tests that run many small torch ops: under
+    several test workers, each worker's thread pool would contend for the
+    cores and each op wait on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.mark.parametrize("case", CASES, ids=[c.name for c in CASES])
-def test_dominated_ref_equals_reference(case):
+def test_dominated_ref_equals_reference(case, one_thread):
     got = P.dominated(_t(case.rows), _t(case.cands), EPS, seg=case.seg)
     assert got.dtype == torch.bool and got.shape == (len(case.cands),)
     np.testing.assert_array_equal(got.numpy(), _reference_verdicts(case))
@@ -100,6 +115,18 @@ def test_seg_plain_version_equals_phase1_blocks(seg):
 def test_seg_needs_one_count_of_rows_and_candidates():
     with pytest.raises(ValueError, match="as many rows as candidates"):
         P.dominated(_t(np.zeros((5, 3))), _t(np.zeros((4, 3))), EPS, seg=2)
+
+
+@pytest.mark.parametrize("chunk", [64, 512])
+@pytest.mark.parametrize("case", [c for c in CASES if not c.seg],
+                         ids=[c.name for c in CASES if not c.seg])
+def test_cpu_pareto_mask_equals_all_pairs(case, chunk, one_thread):
+    """The CPU route's block prefilter then survivors against every row
+    gives the all-pairs verdicts of the plain version."""
+    rows = _t(case.rows)
+    want = ~P.dominated_ref(rows, rows, EPS).numpy()
+    np.testing.assert_array_equal(
+        B.pareto_mask(case.rows, chunk=chunk, device="cpu"), want)
 
 
 def test_empty_candidates():
@@ -271,12 +298,26 @@ def test_passes_a_call_launches(n, c, seg, want):
     assert dom_kernel.passes(n, c, seg) == want
 
 
+@pytest.mark.parametrize("n,c,seg,k,want", [
+    (100, 100, 0, 0, ("wide",)),
+    (100, 100, 0, 9, ("wide",)),
+    (138_348, 138_348, 0, 12, ("wide",)),
+    (5000, 5000, R + 1, 64, ("wide",)),
+    (5, 0, 0, 12, ()),
+    (5, 0, 0, 0, ()),
+    (R + 1, 9, 0, dom_kernel.MAX_OBJECTIVES, ("screen", "split")),
+])
+def test_passes_of_the_wide_route(n, c, seg, k, want):
+    assert dom_kernel.passes(n, c, seg, k) == want
+
+
 def test_source_constants_equal_the_binding_and_the_edge_sets():
     import re
     text = (build.CSRC / "pareto_dominated.cu").read_text()
     const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", text))
     assert int(const["kScreenRows"]) == dom_kernel.SCREEN_ROWS
     assert int(const["kMaxObjectives"]) == dom_kernel.MAX_OBJECTIVES
+    assert int(const["kWideStage"]) == dom_kernel.WIDE_STAGE
     few, many = re.search(r"chunk_rows\(\) \{\s*return K <= 4 \? (\d+) "
                           r": (\d+);\s*\}", text).groups()
     for k in range(1, dom_kernel.MAX_OBJECTIVES + 1):
@@ -286,7 +327,7 @@ def test_source_constants_equal_the_binding_and_the_edge_sets():
 def test_edge_sets_reach_both_passes():
     split = [c.name for c in CASES
              if "split" in dom_kernel.passes(len(c.rows), len(c.cands),
-                                             c.seg)]
+                                             c.seg, c.rows.shape[1])]
     for name in ("lone_front", "witness_last_row", "plane_5k",
                  "antichain_10k", "seg_1500_budget", "inf_pad_survivors",
                  "nan_survivors", "boundary_witnesses_k2",
@@ -296,9 +337,19 @@ def test_edge_sets_reach_both_passes():
         assert name not in split
 
 
+def test_wide_edge_sets_take_the_wide_kernel():
+    wide = [c.name for c in CASES
+            if dom_kernel.passes(len(c.rows), len(c.cands), c.seg,
+                                 c.rows.shape[1]) == ("wide",)]
+    assert wide == ["random_k9", "random_k12", "random_k16", "random_k64",
+                    "near_ties_k12", "boundary_witnesses_k12",
+                    "seg_300_k12", "k0"]
+
+
 @pytest.mark.parametrize("name", [
     "boundary_witnesses_k2", "boundary_witnesses_k3",
-    f"boundary_witnesses_k{dom_kernel.MAX_OBJECTIVES}"])
+    f"boundary_witnesses_k{dom_kernel.MAX_OBJECTIVES}",
+    "boundary_witnesses_k12"])
 def test_boundary_witnesses_sit_on_the_boundaries(name):
     case = next(c for c in CASES if c.name == name)
     n, k = case.rows.shape
@@ -324,10 +375,13 @@ def test_seg_boundary_witnesses_sit_on_either_side_of_the_budget():
             np.delete(blk, w, axis=0), blk[5:6], EPS).tolist() == [False]
 
 
-@pytest.mark.parametrize("k", [9, 12])
+@pytest.mark.parametrize("k", [0, 9, 12])
 def test_too_many_objectives_raise_on_the_kernel_route(k):
+    """More objectives than the screen takes, and none, are the wide
+    kernel's: they pass the binding's objective check and raise only at
+    its device check, for not being on a card."""
     objs = np.random.default_rng(k).random((20, k))
-    with pytest.raises(ValueError, match="objectives"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         P.dominated(_t(objs, META), _t(objs, META), EPS)
     # the plain version takes any k on the CPU
     np.testing.assert_array_equal(

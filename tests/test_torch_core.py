@@ -253,6 +253,17 @@ def tie_points(n: int, seed: int) -> np.ndarray:
     return base + jitter
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for tests that run many small torch ops: under
+    several test workers, each worker's thread pool would contend for the
+    cores and each op wait on it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 class TestParetoMask:
     @pytest.mark.parametrize("chunk", [512, 4096])
     def test_device_mask_equals_reference_on_10k_ties(self, chunk):
@@ -285,6 +296,60 @@ class TestParetoMask:
 
     def test_empty(self):
         assert B.pareto_mask(np.zeros((0, 3)), device=CPU).shape == (0,)
+
+    @pytest.mark.parametrize("chunk", [512, 4096])
+    def test_cpu_route_equals_all_pairs_on_10k_ties(self, chunk, one_thread):
+        """The CPU route (a block prefilter, then the survivors against
+        every row) against the plain version over all pairs."""
+        objs = tie_points(10_000, seed=5)
+        rows = torch.as_tensor(objs)
+        want = ~P.dominated_ref(rows, rows).numpy()
+        assert 0 < want.sum() < len(objs)
+        np.testing.assert_array_equal(
+            B.pareto_mask(objs, chunk=chunk, device=CPU), want)
+
+
+# no objective at all: no row is strictly better in some objective, so
+# nothing is dominated; the empty set has no point
+NO_OBJECTIVES = {"5x0": np.zeros((5, 0)), "3x0": np.zeros((3, 0)),
+                 "0x0": np.zeros((0, 0))}
+
+
+class TestNoObjectives:
+    @pytest.mark.parametrize("name", list(NO_OBJECTIVES))
+    def test_chunk_dominated(self, name):
+        objs = NO_OBJECTIVES[name]
+        want = R_pareto.chunk_dominated(objs, objs, P.PARETO_EPS, xp=np)
+        np.testing.assert_array_equal(
+            P.chunk_dominated(objs, objs, P.PARETO_EPS), want)
+        t = torch.as_tensor(objs)
+        for got in (P.chunk_dominated(t, t, P.PARETO_EPS),
+                    P.dominated_ref(t, t), P.dominated(t, t),
+                    P.dominated(t, t, seg=2)):
+            assert got.dtype == torch.bool
+            np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("name", list(NO_OBJECTIVES))
+    def test_masks(self, name):
+        objs = NO_OBJECTIVES[name]
+        want = R_pareto.nondominated_mask(objs)
+        assert want.all()
+        np.testing.assert_array_equal(P.nondominated_mask(objs), want)
+        np.testing.assert_array_equal(B.pareto_mask(objs, device=CPU), want)
+
+    @pytest.mark.parametrize("name", list(NO_OBJECTIVES))
+    def test_pareto_indices(self, name):
+        objs = [tuple(o) for o in NO_OBJECTIVES[name]]
+        assert P.pareto_indices(objs) == R_pareto.pareto_indices(objs)
+        assert P.pareto_indices(
+            objs, mask_fn=lambda o: B.pareto_mask(o, device=CPU)) == \
+            R_pareto.pareto_indices(objs)
+
+    def test_pareto_front(self):
+        assert P.pareto_front([1, 2], lambda x: ()) == \
+            R_pareto.pareto_front([1, 2], lambda x: ()) == [1]
+        assert P.pareto_indices([(), (), ()]) == \
+            R_pareto.pareto_indices([(), (), ()]) == [0]
 
 
 # ---------------------------------------------------------------------------

@@ -259,7 +259,8 @@ def test_dominance_kernel_equals_plain_version(cuda_device, case):
     torch.cuda.synchronize()
     mode = "seg" if case.seg else "all"
     assert dom_kernel.LAUNCHES == {**before, mode: before[mode] + 1}
-    ran = dom_kernel.passes(len(case.rows), len(case.cands), case.seg)
+    ran = dom_kernel.passes(len(case.rows), len(case.cands), case.seg,
+                            case.rows.shape[1])
     assert dom_kernel.PASS_LAUNCHES == {
         k: v + (k in ran) for k, v in passes_before.items()}
     assert got.device == cands.device and got.dtype == torch.bool
@@ -290,11 +291,26 @@ def test_dominance_split_pass_takes_the_screens_survivors(cuda_device):
         assert torch.equal(got, dominated_ref(rows, cands, eps, case.seg))
 
 
-def test_dominance_kernel_refuses_too_many_objectives(cuda_device):
-    k = dom_kernel.MAX_OBJECTIVES + 1
-    rows = torch.zeros((4, k), dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError, match="objectives"):
-        P.dominated(rows, rows, P.PARETO_EPS)
+@pytest.mark.parametrize("k", [0, 9, 12, 64])
+@pytest.mark.parametrize("seg", [0, 100])
+def test_dominance_wide_route_equals_plain_version(cuda_device, k, seg):
+    """More objectives than the screen takes, and none, go to the wide
+    kernel: one launch, counted under ``wide``, the plain version's
+    verdicts (every one False at k = 0)."""
+    rng = np.random.default_rng(k)
+    objs = np.floor(rng.random((1500, k)) * 3) * 1e-3
+    rows = torch.as_tensor(objs, device=cuda_device)
+    before = dict(dom_kernel.PASS_LAUNCHES)
+    got = P.dominated(rows, rows, P.PARETO_EPS, seg=seg)
+    torch.cuda.synchronize()
+    assert dom_kernel.PASS_LAUNCHES == {**before,
+                                        "wide": before["wide"] + 1}
+    want = dominated_ref(rows, rows, P.PARETO_EPS, seg)
+    assert torch.equal(got, want)
+    if k == 0:
+        assert not got.any()
+    elif k <= 12:
+        assert got.any() and not got.all()
 
 
 def _rollup_operands(specs, device):
@@ -368,7 +384,7 @@ def test_compiler_kernels_launch_once_per_group_and_frontier(cuda_device):
     assert rollup_kernel.LAUNCHES["rollup"] == r0 + 1
     assert dom_kernel.LAUNCHES == {"all": d0["all"] + 4, "seg": d0["seg"]}
     # two kernels per frontier: the screen, then the split
-    assert dom_kernel.PASS_LAUNCHES == {"screen": p0["screen"] + 4,
+    assert dom_kernel.PASS_LAUNCHES == {**p0, "screen": p0["screen"] + 4,
                                         "split": p0["split"] + 4}
     cpu = C.design_space_sweep_many(specs, tech, config=FULL_LATTICE,
                                     device="cpu")
@@ -393,7 +409,7 @@ def test_sharded_mask_kernel_two_launches_per_entry(cuda_device):
     assert dom_kernel.LAUNCHES == {"all": before["all"] + 4,
                                    "seg": before["seg"] + 4}
     assert dom_kernel.PASS_LAUNCHES == {
-        "screen": passes_before["screen"] + 8,
+        **passes_before, "screen": passes_before["screen"] + 8,
         "split": passes_before["split"] + 4}
     np.testing.assert_array_equal(got, P.nondominated_mask(objs))
 

@@ -20,6 +20,14 @@ shorter than, equal to and longer than the screen budget (with witnesses
 on either side of it); ``+inf`` pad candidates and NaN candidates that the
 screen leaves to the split pass.
 
+Then sets for the wide kernel, which takes any other objective count
+(more than ``MAX_OBJECTIVES``, or none), drawn from a generator of their
+own after the others, so that the earlier sets keep their data: random
+sets at 9, 12, 16 and 64 objectives, near ties at 12, each candidate's
+only witness at a boundary row at 12, block-local tests at 12, and no
+objective at all (every verdict False).  :func:`wide_tie_points` draws a
+larger set of near ties at any objective count.
+
 :func:`dominance_cases` draws them from a numpy seed, so the CPU tests
 (``test_torch_compiler_kernels.py``), the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` share them.  It imports
@@ -60,6 +68,22 @@ def _tied_front(rng, n: int, eps: float) -> np.ndarray:
     base = np.concatenate([xy, 16 - xy.sum(1, keepdims=True)], axis=1)
     steps = rng.integers(-4, 5, (n, 3)).astype(np.float64) * 0.5
     return base.astype(np.float64) * 1e-3 + steps * eps
+
+
+def _wide_ties(rng, n: int, k: int, eps: float) -> np.ndarray:
+    """Objectives on a grid of three values (many exact ties, and at 12
+    objectives some hundreds of points in 8,192 that nothing dominates),
+    each jittered inside the +-eps/2 band on half the coordinates."""
+    base = rng.integers(0, 3, (n, k)).astype(np.float64) * 1e-3
+    jitter = rng.uniform(-0.5, 0.5, (n, k)) * eps
+    jitter[rng.random((n, k)) < 0.5] = 0.0
+    return base + jitter
+
+
+def wide_tie_points(n: int, k: int, eps: float, seed: int) -> np.ndarray:
+    """``n`` near-tie points at ``k`` objectives drawn from ``seed``: both
+    verdicts occur in the hundreds or more at n = 8,192 and k = 12."""
+    return _wide_ties(np.random.default_rng(seed), n, k, eps)
 
 
 def chunk_rows(k: int) -> int:
@@ -162,6 +186,23 @@ def _two_pass_cases(rng, eps: float) -> list[DominanceCase]:
     return out
 
 
+def _wide_cases(rng, eps: float) -> list[DominanceCase]:
+    out = []
+    for k in (9, 12, 16, 64):
+        objs = rng.random((1000, k))
+        out.append(DominanceCase(f"random_k{k}", objs, objs, 0))
+    ties = _wide_ties(rng, 1500, 12, eps)
+    out.append(DominanceCase("near_ties_k12", ties, ties, 0))
+    rows, cands = _sole_witnesses(2600, 12, boundary_rows(2600, 12))
+    out.append(DominanceCase("boundary_witnesses_k12", rows, cands, 0))
+    objs = np.concatenate([_wide_ties(rng, 1111, 12, eps),
+                           np.full((89, 12), np.inf)])
+    out.append(DominanceCase("seg_300_k12", objs, objs, 300))
+    none = np.zeros((700, 0))
+    out.append(DominanceCase("k0", none, none, 0))
+    return out
+
+
 def dominance_cases(eps: float, seed: int = 0) -> list[DominanceCase]:
     """The edge sets for the tie band ``eps``, drawn from ``seed``."""
     rng = np.random.default_rng(seed)
@@ -202,4 +243,5 @@ def dominance_cases(eps: float, seed: int = 0) -> list[DominanceCase]:
     x = np.linspace(0.0, 1.0, 10_000)
     chain = np.stack([x, 1.0 - x], axis=1)
     out.append(DominanceCase("antichain_10k", chain, chain, 0))
-    return out + _two_pass_cases(rng, eps)
+    return (out + _two_pass_cases(rng, eps)
+            + _wide_cases(np.random.default_rng(seed + 1), eps))
