@@ -44,9 +44,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
                objectives through ``batched.pareto_mask(device="cuda")``
                and ``nondominated_mask_sharded`` on four entries of card
                0, both equal to the host ``nondominated_mask`` bit for bit,
-               its launches counted (``PASS_LAUNCHES["wide"]``, set to 0
-               before and read after), its calls held against and timed
-               beside the plain version, with their bound;
+               its launches counted (``PASS_LAUNCHES["wide_screen"]`` and
+               ``["wide_split"]``, set to 0 before and read after), its
+               calls held against and timed beside the plain version, with
+               their bound, each call's survivors and pass times logged;
+               then 65,536 near ties at 16 objectives through both entry
+               points, the ``pareto_mask`` call held against the plain
+               version and timed with its bound, both masks held against
+               the host mask (``nondominated_mask``'s two passes, their
+               chunks over the host's cores: ``_host_mask``, itself held
+               against ``nondominated_mask`` at 8,192 x 12);
   2b. shard    the sharded compiler engine on the card's mesh
                (``spec_sweep_mesh()``, every visible card) and on four
                entries of card 0 (``["cuda:0"] * 4``): a 130-spec request
@@ -221,7 +228,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
                bfloat16, int32), each result printed, all must be right;
                (b) ``python -m torch.distributed.run --nproc-per-node 4 -m
                repro_torch.launch.train --arch llama3.2-3b --mesh 2x2
-               --backend gloo --steps 3 --batch 4 --seq 512
+               --backend gloo --steps 2 --batch 4 --seq 512
                --microbatches 2`` at full width: finite losses, step 0's
                within SCALE_LOSS of the train phase's one-device step 0,
                every rank holding a quarter of every leaf sharded over both
@@ -278,6 +285,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -516,7 +524,8 @@ def phase_compiler() -> dict:
         if dev == "cuda":          # the main path's launches, counted
             rollup_kernel.LAUNCHES["rollup"] = 0
             dom_kernel.LAUNCHES.update(all=0, seg=0)
-            dom_kernel.PASS_LAUNCHES.update(screen=0, split=0, wide=0)
+            dom_kernel.PASS_LAUNCHES.update(
+                dict.fromkeys(dom_kernel.PASS_LAUNCHES, 0))
             E.add_execute_hook(count_groups)
             record = _recorded_dominance()
         with record as calls:
@@ -636,16 +645,46 @@ def phase_compiler() -> dict:
     _dominance_passes("compiler: A2", a2_calls)
     # the row's launches are kernels (screen and split), not calls
     kernels = [_a1_row(specs, tech, config, launches["rollup"]),
-               _a2_row(a2_calls, sum(passes.values())),
-               _wide_main_path()]
+               _a2_row(a2_calls, sum(passes.values()))]
+    kernels.append(_wide_main_path())
     return {"language": res_g[names.index("language")],
             "results": {"cuda": res_g, "cpu": res_c}, "fronts": fr_g,
             "a2_traced": traced["frontier_indices"], "kernels": kernels}
 
 
 # The wide route's main path: near-tie points at more objectives than the
-# screen and split kernels take (tests/torch_dominance_cases.py)
+# screen and split kernels take (tests/torch_dominance_cases.py), and a
+# second, larger size, one pareto_mask call and the sharded mask
 WIDE_POINTS, WIDE_OBJECTIVES = 8192, 12
+WIDE_LARGE_POINTS, WIDE_LARGE_OBJECTIVES = 65_536, 16
+
+
+def _host_mask(objs: np.ndarray, chunk: int = 1024) -> np.ndarray:
+    """The host's non-dominated mask of ``objs``: the two passes of
+    ``core.pareto.nondominated_mask`` (each block of ``chunk`` points
+    against itself, then the points that survive against every point, in
+    chunks of ``chunk``) through the same ``chunk_dominated``, over a
+    column-major copy so that each objective's column is read in order,
+    the chunks of each pass spread over the host's cores (numpy releases
+    the GIL in them).  The same verdicts as ``nondominated_mask``, in a
+    fraction of its wall time at 65,536 points."""
+    from repro_torch.core import pareto as P
+
+    objs = np.asfortranarray(objs, dtype=np.float64)
+    workers = min(8, len(os.sched_getaffinity(0)))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        keep = ~np.concatenate(list(pool.map(
+            lambda s: P.chunk_dominated(objs[s:s + chunk],
+                                        objs[s:s + chunk], P.PARETO_EPS),
+            range(0, len(objs), chunk))))
+        survivors = np.flatnonzero(keep)
+        parts = list(pool.map(
+            lambda s: P.chunk_dominated(objs, objs[survivors[s:s + chunk]],
+                                        P.PARETO_EPS),
+            range(0, survivors.size, chunk)))
+    if parts:
+        keep[survivors] = ~np.concatenate(parts)
+    return keep
 
 
 def _wide_main_path() -> dict:
@@ -654,9 +693,14 @@ def _wide_main_path() -> dict:
     ``nondominated_mask_sharded`` on four entries of card 0 (A3's) over
     WIDE_POINTS seeded near-tie points at WIDE_OBJECTIVES objectives, each
     mask equal to the host ``nondominated_mask`` bit for bit; the wide
-    kernel's launches counted around both (set to 0 before, read after),
+    kernels' launches counted around both (set to 0 before, read after),
     their calls recorded, held against the plain version and timed beside
-    it, with their bound."""
+    it, with their bound, and each call's survivors and pass times logged.
+    Then WIDE_LARGE_POINTS near ties at WIDE_LARGE_OBJECTIVES objectives
+    through both entry points, its ``pareto_mask`` call held against the
+    plain version and timed, with its bound, and both masks held against
+    the host mask (:func:`_host_mask`, held against ``nondominated_mask``
+    on the first set).  Returns the kernels-line row."""
     import torch
 
     from repro_torch.core import batched as B
@@ -665,13 +709,17 @@ def _wide_main_path() -> dict:
     from repro_torch.parallel import spec_sweep_mesh
     from torch_dominance_cases import wide_tie_points
 
+    t_step = time.perf_counter()
     objs = wide_tie_points(WIDE_POINTS, WIDE_OBJECTIVES, P.PARETO_EPS, SEED)
     t0 = time.perf_counter()
     host = P.nondominated_mask(objs)
     t_host = time.perf_counter() - t0
+    check(np.array_equal(_host_mask(objs), host), "compiler: wide route: "
+          "_host_mask differs from nondominated_mask")
     mesh = spec_sweep_mesh(["cuda:0"] * 4)
     dom_kernel.LAUNCHES.update(all=0, seg=0)
-    dom_kernel.PASS_LAUNCHES.update(screen=0, split=0, wide=0)
+    dom_kernel.PASS_LAUNCHES.update(
+        dict.fromkeys(dom_kernel.PASS_LAUNCHES, 0))
     with _recorded_dominance() as calls:
         t0 = time.perf_counter()
         mask = B.pareto_mask(objs, device="cuda")
@@ -681,7 +729,10 @@ def _wide_main_path() -> dict:
     torch.cuda.synchronize()
     launches = dict(dom_kernel.LAUNCHES)
     passes = dict(dom_kernel.PASS_LAUNCHES)
-    check(passes == _passes_of(calls) and passes["wide"] == len(calls) > 0,
+    kernels = passes["wide_screen"] + passes["wide_split"]
+    check(passes == _passes_of(calls)
+          and passes["wide_screen"] == len(calls) > 0
+          and passes["screen"] == passes["split"] == 0,
           f"compiler: wide route: kernels by pass {passes} from "
           f"{len(calls)} calls, want {_passes_of(calls)}")
     check(launches == {"all": 5, "seg": 4},
@@ -696,17 +747,63 @@ def _wide_main_path() -> dict:
           "sharded mask on four entries differs from the host mask")
     row, pairs = _dominance_row("pareto_dominated_wide",
                                 "src/repro/core/pareto.py:52", calls,
-                                passes["wide"], plain_reps=3)
+                                kernels, plain_reps=3)
     log(f"compiler: wide route, {WIDE_POINTS} x {WIDE_OBJECTIVES} near-tie "
         f"points ({kept} not dominated, {len(objs) - kept} dominated): "
         f"pareto_mask(device='cuda') {t1 - t0:.6f} s and the sharded mask "
         f"on 4 entries {t2 - t1:.6f} s of wall, the host mask "
-        f"{t_host:.6f} s; all three equal bit for bit; {len(calls)} calls "
-        f"(seg {[c[3] for c in calls]}), {passes['wide']} wide kernels; "
+        f"{t_host:.6f} s (_host_mask equal to it); all three equal bit "
+        f"for bit; {len(calls)} calls "
+        f"(seg {[c[3] for c in calls]}), kernels by pass {passes}; "
         f"{row['ms']:.6f} ms, plain {row['plain_ms']:.6f} ms, bound "
         f"{row['bound_ms']:.6f} ms ({row['bound_by']}, the {pairs} pairs "
         f"these data need); {row['max_abs_err']} verdicts differ from the "
         f"plain version")
+    _dominance_passes("compiler: wide route", calls)
+
+    # the second size
+    big = wide_tie_points(WIDE_LARGE_POINTS, WIDE_LARGE_OBJECTIVES,
+                          P.PARETO_EPS, SEED)
+    with _recorded_dominance() as calls:
+        t0 = time.perf_counter()
+        mask = B.pareto_mask(big, device="cuda")
+        t1 = time.perf_counter()
+    sharded = P.nondominated_mask_sharded(big, mesh=mesh)
+    t2 = time.perf_counter()
+    host = _host_mask(big)
+    t_host = time.perf_counter() - t2
+    check(np.array_equal(mask, host) and np.array_equal(sharded, host),
+          f"compiler: wide route at {WIDE_LARGE_POINTS} x "
+          f"{WIDE_LARGE_OBJECTIVES}: the masks from the card differ from "
+          "the host mask")
+    ((rows, cands, eps, seg, chunk, got),) = calls
+    t3 = time.perf_counter()
+    want = P.dominated_ref(rows, cands, eps, seg, chunk)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t3
+    err = int((got != want).sum())
+    check(err == 0, f"compiler: wide route at {WIDE_LARGE_POINTS} x "
+          f"{WIDE_LARGE_OBJECTIVES}: {err} verdicts differ from the plain "
+          "version")
+    ms = _time_ms(lambda: P.dominated(rows, cands, eps, seg, chunk), reps=5)
+    stats = {}
+    dom_kernel.pareto_dominated_cuda(rows, cands, eps, seg, stats=stats)
+    torch.cuda.synchronize()
+    e = stats["events"]
+    bound, by, big_pairs = _dominance_bound_ms(calls)
+    log(f"compiler: wide route, {WIDE_LARGE_POINTS} x "
+        f"{WIDE_LARGE_OBJECTIVES} near-tie points "
+        f"({int(host.sum())} not dominated): "
+        f"pareto_mask(device='cuda') {t1 - t0:.6f} s and the sharded mask "
+        f"on 4 entries {t2 - t1:.6f} s of wall, both equal to the host "
+        f"mask bit for bit (_host_mask {t_host:.3f} s of wall); its "
+        f"call {ms:.6f} ms (the screen left "
+        f"{int(stats['survivors'].item())} survivors; screen "
+        f"{e[0].elapsed_time(e[1]):.6f} ms, split "
+        f"{e[1].elapsed_time(e[2]):.6f} ms in one run), bound "
+        f"{bound:.6f} ms ({by}, the {big_pairs} pairs these data need); "
+        f"the plain version once {t_plain:.3f} s of wall, 0 verdicts "
+        f"differ; the wide step {time.perf_counter() - t_step:.3f} s of wall")
     return row
 
 
@@ -849,9 +946,9 @@ def _dominance_row(name: str, replaces: str, calls, launches: int,
 def _passes_of(calls) -> dict:
     """The dominance kernels, by pass, that the recorded ``calls`` launch
     (:func:`repro_torch.kernels.pareto_dominated.passes` of each)."""
-    from repro_torch.kernels.pareto_dominated import passes
+    from repro_torch.kernels.pareto_dominated import PASS_LAUNCHES, passes
 
-    out = {"screen": 0, "split": 0, "wide": 0}
+    out = dict.fromkeys(PASS_LAUNCHES, 0)
     for rows, cands, _, seg, _, _ in calls:
         for name in passes(rows.shape[0], cands.shape[0], seg,
                            rows.shape[1]):
@@ -1098,7 +1195,8 @@ def phase_shard(compiler: dict) -> list[dict]:
         sweeps = design_space_sweep_many_sharded(scen, tech, config=config,
                                                  mesh=mesh, mode="jit")
         dom_kernel.LAUNCHES.update(all=0, seg=0)
-        dom_kernel.PASS_LAUNCHES.update(screen=0, split=0, wide=0)
+        dom_kernel.PASS_LAUNCHES.update(
+            dict.fromkeys(dom_kernel.PASS_LAUNCHES, 0))
         t0 = time.perf_counter()
         with _recorded_dominance() as calls:
             fronts = [s.frontier_indices() for s in sweeps]
@@ -3102,7 +3200,7 @@ SCALE_RANKS = 4
 # phase's batch; step 0's loss within SCALE_LOSS (relative) of the train
 # phase's.  The launcher prints 4 decimals: up to 4.1e-6 of rounding at a
 # loss near 12.3, so the limit leaves the sharded sum about 6e-6.
-SCALE_MESH, SCALE_STEPS, SCALE_LOSS = "2x2", 3, 1e-5
+SCALE_MESH, SCALE_STEPS, SCALE_LOSS = "2x2", 2, 1e-5
 # (d) the elastic drill at the smoke config; its sharded losses against one
 # device's, relative: the sharded step's tolerance in the tests, and the
 # tolerance of a loss from a step on which a fake-quant code flipped

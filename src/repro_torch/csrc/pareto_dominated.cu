@@ -89,16 +89,35 @@
 //    two items that both store true store the same value, so the races
 //    are harmless.
 //
-// 3. Wide (wide_kernel), for more than kMaxObjectives objectives and for
-//    none: one launch, the whole test in float64 with no prefilter.  A
-//    warp takes one candidate at a time from a device queue, stages its
-//    bounds in shared memory where they fit (kWideStage objectives; more
-//    are read from global memory and rounded again, to the same bits),
-//    and its lanes stride the rows of its test, one row a lane a step,
-//    each comparing all k objectives of its row; __any_sync after each
-//    step stops the warp at the first witness.  Row offsets are 64-bit.
-//    With k = 0 no row is read: no objective can be strictly better, so
-//    every verdict is false, as the plain version's.
+// 3. Wide, for more than kMaxObjectives objectives and for none: the same
+//    two passes for an objective count known only at run time, one code
+//    path for every count (two instantiations: rows staged in shared
+//    memory up to kWideStage objectives, read in place above, their
+//    bounds then computed again, to the same bits).  Rows are staged column
+//    by column with 8-byte cp.async (a row is k * 8 bytes, so neither its
+//    start nor a column is 16-byte aligned), so that consecutive lanes read
+//    one column.  The work is units: a group of kWideGroup candidates
+//    against a range of rows, a warp each, its lanes striding the rows
+//    kWideLaneRows a lane a step (wide_unit).  A step tests `<=` over every
+//    objective for all its (member, row) pairs, four objectives at a time
+//    until none passes, then `<` for the few that passed; the lanes combine
+//    with __reduce_or_sync.
+//    - Wide screen (wide_screen_kernel): a block of kWideScreenWarps warps
+//      takes slabs of candidates, stages their stream once, at most
+//      wide_screen_rows(k) rows (the narrow screen's stream, shorter where
+//      kWideScreenValues cannot hold kScreenRows), and its warps take the
+//      slab's groups from a queue with no barrier between them, each group
+//      against the whole stream.  A test no longer than the stream is
+//      decided here (A3's phase 1).
+//    - Wide split (wide_split_kernel): the split's persistent grid, items
+//      of (slab of survivors, partition of the rows) and done flags; a
+//      block walks its partition in chunks of wide_chunk_rows(k) rows,
+//      double-buffered, and deals (group, slice of the chunk) units round
+//      its warps (wide_walk).
+//    No float32 prefilter: the `<=` pass is not bound by the float64
+//    compares (PERF.md: a float32 compare in its place was slower).  With
+//    k = 0 no row is read: no objective can be strictly better, so every
+//    verdict is false, as the plain version's.
 //
 // Bound on the H100 SXM: two float64 comparisons per objective per pair
 // tested, at 64 FP64 lanes per SM, against the objectives read once and
@@ -110,7 +129,11 @@
 // one on the frontiers: the items of the split's first wave all start at
 // once, so every survivor is tested against the first chunk of each of
 // their partitions before the done flags can stop it (PERF.md gives the
-// counts).
+// counts).  A single warp per candidate at wide k (the first wide kernel)
+// left each point nothing dominates to walk every row as one chain of
+// warp steps; the wide passes spread those scans as the narrow ones do.
+// Of what is left, about two fifths is the floor of a call's launches and
+// scratch (PERF.md gives the split).
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -123,7 +146,7 @@ constexpr int kMaxObjectives = 8;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWaves = 4;                // split: items per resident block
-constexpr int kWideStage = 64;           // wide: objectives staged per warp
+constexpr int kWideStage = 64;           // wide: objectives staged
 constexpr unsigned kFull = 0xffffffffu;
 
 // split: rows per chunk (a buffer of at most 32 KB)
@@ -560,6 +583,33 @@ __device__ __forceinline__ bool stage_chunk(double* buf, uint32_t bar,
   return bulk;
 }
 
+// The split's work items, sized on the device from the survivor count:
+// each a slab of survivors against a partition of the rows, whole chunks
+// of `chunk` rows.  Survivors per slab: whole warps, at most one per
+// thread, and fewer where there are few, so that the items still come to
+// about kWaves per block (an item is at most one slab against one chunk's
+// rows).
+struct SplitItems {
+  int slab_size;
+  int64_t slabs, part_rows, items;
+};
+
+__device__ __forceinline__ SplitItems split_items(int64_t s_count, int64_t n,
+                                                  int chunk) {
+  const int64_t n_chunks = (n + chunk - 1) / chunk;
+  const int64_t target = int64_t{kWaves} * gridDim.x;
+  const int64_t per = (s_count * n_chunks + target - 1) / target;
+  SplitItems w;
+  w.slab_size = static_cast<int>(
+      min(int64_t{kThreads}, max(int64_t{32}, (per + 31) / 32 * 32)));
+  w.slabs = (s_count + w.slab_size - 1) / w.slab_size;
+  const int64_t want = (target + w.slabs - 1) / w.slabs;
+  const int64_t parts_wanted = max(int64_t{1}, min(n_chunks, want));
+  w.part_rows = (n_chunks + parts_wanted - 1) / parts_wanted * chunk;
+  w.items = w.slabs * ((n + w.part_rows - 1) / w.part_rows);
+  return w;
+}
+
 template <int K>
 __global__ void __launch_bounds__(kThreads)
     split_kernel(const double* __restrict__ rows, int64_t n,
@@ -576,21 +626,10 @@ __global__ void __launch_bounds__(kThreads)
   // order), so the survivor count is final
   const int64_t s_count = *reinterpret_cast<volatile int*>(count);
   if (s_count == 0) return;
-  const int64_t n_chunks = (n + kChunk - 1) / kChunk;
-  // survivors per slab: whole warps, at most one per thread, and fewer
-  // where there are few, so that the items still come to about kWaves per
-  // block (an item is at most one slab against one chunk's rows)
-  const int64_t target = int64_t{kWaves} * gridDim.x;
-  const int64_t per = (s_count * n_chunks + target - 1) / target;
-  const int slab_size = static_cast<int>(
-      min(int64_t{kThreads}, max(int64_t{32}, (per + 31) / 32 * 32)));
-  const int64_t slabs = (s_count + slab_size - 1) / slab_size;
-  const int64_t want = (target + slabs - 1) / slabs;
-  const int64_t parts_wanted = max(int64_t{1}, min(n_chunks, want));
-  const int64_t part_rows =
-      (n_chunks + parts_wanted - 1) / parts_wanted * kChunk;
-  const int64_t parts = (n + part_rows - 1) / part_rows;
-  const int64_t items = slabs * parts;
+  const SplitItems work = split_items(s_count, n, kChunk);
+  const int slab_size = work.slab_size;
+  const int64_t slabs = work.slabs, part_rows = work.part_rows;
+  const int64_t items = work.items;
 
   if (threadIdx.x == 0) {
     mbar_init(smem_u32(&sm.bar[0]), 1);
@@ -803,7 +842,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // Blocks of `kernel` the card holds at once with `smem` bytes each.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
+cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks,
+                            int threads = kThreads) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -815,7 +855,7 @@ cudaError_t resident_blocks(Kernel kernel, int smem, int* blocks) {
     if (err != cudaSuccess) return err;
   }
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+                                                      threads, smem);
   if (err != cudaSuccess) return err;
   *blocks = sms * (per_sm > 0 ? per_sm : 1);
   return cudaSuccess;
@@ -859,79 +899,519 @@ cudaError_t launch_split(const double* rows, int64_t n, const double* cands,
 // 3. wide
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-    wide_kernel(const double* __restrict__ rows, int64_t n,
-                const double* __restrict__ cands, int64_t c, int64_t k,
-                double eps, int64_t seg, bool* __restrict__ out,
-                unsigned long long* __restrict__ queue) {
-  __shared__ double staged[kWarps][2][kWideStage];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bool in_smem = k <= kWideStage;
-  double* upper = staged[warp][0];
-  double* lower = staged[warp][1];
-  for (;;) {
-    unsigned long long got = 0;
-    if (lane == 0) got = atomicAdd(queue, 1ull);
-    const int64_t i =
-        static_cast<int64_t>(__shfl_sync(kFull, got, 0));
-    if (i >= c) break;
-    const double* cand = cands + i * k;
-    if (in_smem) {
-      __syncwarp();                    // the last candidate's bounds read
-      for (int64_t d = lane; d < k; d += 32) {
-        upper[d] = __dadd_rn(cand[d], eps);
-        lower[d] = __dsub_rn(cand[d], eps);
-      }
-      __syncwarp();
+// wide: candidates a unit tests together, and rows a lane tests a step
+constexpr int kWideGroup = 2;
+constexpr int kWideLaneRows = 4;
+// wide screen: warps of a block, and the float64 values of shared memory
+// its stream and its warps' bounds may take
+constexpr int kWideScreenWarps = 16;
+constexpr int kWideScreenValues = 28672;
+// wide split: float64 values per staged chunk buffer, and rows per chunk
+// where the rows are read in place
+constexpr int kWideChunk = 4096;
+constexpr int kWideRows = 256;
+
+// wide screen: rows of its stream for k objectives: kScreenRows where the
+// rows are read in place (k > kWideStage), else as many whole warps of
+// rows as kWideScreenValues hold beside the warps' bounds, at most
+// kScreenRows
+__host__ __device__ inline int wide_screen_rows(int64_t k) {
+  if (k > kWideStage) return kScreenRows;
+  const int64_t rows =
+      (kWideScreenValues / k - 1 - 2 * kWideGroup * kWideScreenWarps) / 32 *
+      32;
+  return static_cast<int>(rows < kScreenRows ? rows : kScreenRows);
+}
+
+// wide split: rows per chunk for k objectives: whole warps of as many rows
+// as kWideChunk values hold where the rows are staged (k <= kWideStage),
+// else kWideRows
+__host__ __device__ inline int wide_chunk_rows(int64_t k) {
+  return k <= kWideStage ? static_cast<int>(kWideChunk / k) / 32 * 32
+                         : kWideRows;
+}
+
+// Stream rows [q0, q1) (row q is rows[(first + q * stride) * k ...]) into
+// `buf` column by column: objective d of row q0 + r at d * pitch + r (an
+// odd pitch, so that the stores of one row's objectives fall in distinct
+// banks, and consecutive lanes read one column without conflicts).  8-byte
+// cp.async by every thread of the block (a row is 8k bytes, so neither its
+// start nor a column is 16-byte aligned), its (row, objective) stepped
+// without a division; commits one group.
+__device__ __forceinline__ void wide_stage(double* buf, int pitch,
+                                           const double* rows, int64_t k,
+                                           int64_t first, int64_t stride,
+                                           int64_t q0, int64_t q1) {
+  const int kk = static_cast<int>(k), n_rows = static_cast<int>(q1 - q0);
+  const int threads = static_cast<int>(blockDim.x);
+  const int dr = threads / kk, dd = threads % kk;
+  int r = threadIdx.x / kk, d = threadIdx.x % kk;
+  for (; r < n_rows; r += dr, d += dd) {
+    if (d >= kk) {
+      d -= kk;
+      ++r;
+      if (r >= n_rows) break;
     }
-    int64_t lo = 0, hi = n;
-    if (seg > 0) {
-      lo = i / seg * seg;
-      hi = min(lo + seg, n);
+    cp_async8(buf + d * pitch + r, rows + (first + (q0 + r) * stride) * k + d);
+  }
+  cp_async_commit();
+}
+
+// A unit's members' float64 bounds into ub / lb (member u's objective d
+// at u * bs + d), the warp's lanes over the objectives.
+__device__ __forceinline__ void wide_bounds(double* ub, double* lb,
+                                            int64_t bs,
+                                            const double* const* cand,
+                                            int64_t k, double eps) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();                        // the warp's last unit is done
+#pragma unroll
+  for (int u = 0; u < kWideGroup; ++u)
+    for (int64_t d = lane; d < k; d += 32) {
+      ub[u * bs + d] = __dadd_rn(cand[u][d], eps);
+      lb[u * bs + d] = __dsub_rn(cand[u][d], eps);
     }
-    bool found = false;
-    // k = 0: no row can be strictly better in some objective
-    for (int64_t r0 = lo; k > 0 && r0 < hi && !found; r0 += 32) {
-      const int64_t r = r0 + lane;
-      bool hit = false;
-      if (r < hi) {
-        const double* x = rows + r * k;
-        bool le = true, lt = false;
-        if (in_smem) {
-#pragma unroll 4
-          for (int64_t d = 0; d < k; ++d) {
-            const double v = x[d];
-            le &= v <= upper[d];
-            lt |= v < lower[d];
-          }
-        } else {
-#pragma unroll 4
-          for (int64_t d = 0; d < k; ++d) {
-            const double v = x[d], cd = cand[d];
-            le &= v <= __dadd_rn(cd, eps);
-            lt |= v < __dsub_rn(cd, eps);
-          }
+  __syncwarp();
+}
+
+// One unit of the wide kernels: the members (candidate rows cand[u] for
+// the bits u of `open`) against rows [u_lo, u_hi) of a stream, each member
+// only on its rows [r_lo[u], r_hi[u]); the warp's lanes stride the rows,
+// kWideLaneRows a lane a step.  Objective d of row r is x[r * rs + d * ds].
+// The bounds are staged (kStaged: member u's at ub / lb + u * bs), else
+// computed again from cand with the same intrinsics, to the same bits.  A
+// step tests its (member, row) pairs in two passes, each pair a bit of a
+// mask: `<=` against the upper bounds over every objective, four at a
+// time, until no pair of the lane still passes, then `<` against the lower
+// bounds for the pairs that passed (few: a witness, or a row that ties the
+// candidate within the band).  A member stops once a row dominates it.
+// Returns the members found dominated (bit u), the same on every lane.
+template <bool kStaged>
+__device__ __forceinline__ unsigned wide_unit(
+    const double* x, int64_t rs, int64_t ds, int64_t k, double eps,
+    const double* const* cand, const double* ub, const double* lb,
+    int64_t bs, const int* r_lo, const int* r_hi, unsigned open, int u_lo,
+    int u_hi) {
+  constexpr int J = kWideLaneRows, G = kWideGroup;
+  const int lane = threadIdx.x & 31;
+  auto upper = [&](int u, int64_t d) {
+    return kStaged ? ub[u * bs + d] : __dadd_rn(cand[u][d], eps);
+  };
+  auto lower = [&](int u, int64_t d) {
+    return kStaged ? lb[u * bs + d] : __dsub_rn(cand[u][d], eps);
+  };
+  unsigned found = 0;
+  for (int r0 = u_lo; r0 < u_hi && (open & ~found); r0 += 32 * J) {
+    const double* row[J];
+    unsigned le = 0;                   // bit u * J + j
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int r = r0 + j * 32 + lane;
+      row[j] = x + min(r, u_hi - 1) * rs;
+#pragma unroll
+      for (int u = 0; u < G; ++u)
+        le |= static_cast<unsigned>((open >> u & 1) & (~found >> u & 1) &
+                                    (r < u_hi) & (r >= r_lo[u]) &
+                                    (r < r_hi[u]))
+              << (u * J + j);
+    }
+    // pass 1: every objective's `<=` (a pair whose `<=` is false, as with a
+    // NaN, drops out of le)
+    int64_t d = 0;
+    for (; d + 4 <= k && le; d += 4) {
+#pragma unroll
+      for (int dd = 0; dd < 4; ++dd) {
+        double v[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) v[j] = row[j][(d + dd) * ds];
+#pragma unroll
+        for (int u = 0; u < G; ++u) {
+          const double up = upper(u, d + dd);
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            le &= v[j] <= up ? ~0u : ~(1u << (u * J + j));
         }
-        hit = le & lt;
       }
-      found = __any_sync(kFull, hit);
     }
-    if (lane == 0) out[i] = found;
+    for (; d < k && le; ++d) {
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const double up = upper(u, d);
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          le &= row[j][d * ds] <= up ? ~0u : ~(1u << (u * J + j));
+      }
+    }
+    // pass 2: some objective's `<`, for the pairs that passed
+    unsigned hit = 0;                  // bit u: a row of this lane
+    for (unsigned pass = le; pass; pass &= pass - 1) {
+      const int bit = __ffs(pass) - 1, u = bit / J, j = bit % J;
+      bool lt = false;
+      for (int64_t e = 0; e < k && !lt; ++e)
+        lt = row[j][e * ds] < lower(u, e);
+      hit |= static_cast<unsigned>(lt) << u;
+    }
+    found |= __reduce_or_sync(kFull, hit);
+  }
+  return found;
+}
+
+// ---- the wide screen
+
+// The wide screen's shared memory: its scheduling state, then (kStaged)
+// the stream, k columns of wide_screen_rows(k) + 1 values, then each
+// warp's members' bounds (member u's upper bounds at (warp * kWideGroup +
+// u) * 2k, its lower bounds k after).
+struct WideScreenSmem {
+  long long staged;                    // first row of the stream held
+  int slab;                            // the block's slab
+  int queue;                           // the slab's next group
+};
+
+inline size_t wide_screen_smem(int64_t k, bool staged) {
+  return sizeof(WideScreenSmem) +
+         (staged ? sizeof(double) * k *
+                       (wide_screen_rows(k) + 1 +
+                        2 * kWideGroup * kWideScreenWarps)
+                 : 0);
+}
+
+// The wide screen: a persistent grid of blocks of kWideScreenWarps warps.
+// The candidates are cut into slabs of `slab` (with seg > 0, slabs of one
+// block of rows each), which the blocks take from count[2].  A block
+// stages its slab's stream, column by column (read in place past
+// kWideStage objectives), len = wide_screen_rows(k) rows at most: with
+// seg = 0 the stream every candidate is tested against (all n rows where
+// n <= len, else the rows q * (n / len), q < len, spread over the array),
+// staged once; with seg > 0 the first len rows of the slab's block of
+// rows, restaged where the block's last slab was of another block.  Its
+// warps take the slab's groups of kWideGroup candidates from a queue in
+// shared memory, each group against the whole stream (wide_unit), with no
+// barrier between one group and the next.  The warp writes the group's
+// verdicts and appends each candidate that is not dominated and whose test
+// is longer than the stream to the survivors (one atomicAdd).  With k = 0
+// no row is read: no objective can be strictly better, so every verdict
+// is false, as the plain version's.
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kWideScreenWarps)
+    wide_screen_kernel(const double* __restrict__ rows, int64_t n,
+                       const double* __restrict__ cands, int64_t c,
+                       int64_t k, double eps, int64_t seg, int slab,
+                       bool* __restrict__ out, int* __restrict__ survivors,
+                       int* __restrict__ count) {
+  constexpr int G = kWideGroup;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideScreenSmem& sm = *reinterpret_cast<WideScreenSmem*>(smem_raw);
+  double* stream = reinterpret_cast<double*>(smem_raw + sizeof(sm));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (k == 0) {
+    for (int64_t i = int64_t{blockIdx.x} * blockDim.x + threadIdx.x; i < c;
+         i += int64_t{gridDim.x} * blockDim.x)
+      out[i] = false;
+    return;
+  }
+  const int len_max = wide_screen_rows(k), pitch = len_max + 1;
+  double* ub = stream + k * pitch + warp * G * 2 * k;
+  double* lb = ub + k;
+  const int64_t block_cands = seg > 0 ? (seg < n ? seg : n) : c;
+  const int64_t per_block = (block_cands + slab - 1) / slab;
+  const int64_t slabs =
+      seg > 0 ? (n + seg - 1) / seg * per_block : per_block;
+  if (threadIdx.x == 0) sm.staged = -1;
+  for (;;) {
+    __syncthreads();                   // the last slab's groups are done
+    if (threadIdx.x == 0) {
+      sm.slab = atomicAdd(count + 2, 1);
+      sm.queue = 0;
+    }
+    __syncthreads();
+    const int64_t s = sm.slab;
+    if (s >= slabs) break;
+    const int64_t first = seg > 0 ? s / per_block * seg : 0;
+    const int64_t cand0 = first + s % per_block * slab;
+    const int64_t end = seg > 0 ? min(first + seg, c) : c;
+    const int64_t cands_here =
+        max(int64_t{0}, min(int64_t{slab}, end - cand0));
+    const int groups = static_cast<int>((cands_here + G - 1) / G);
+    const int64_t test = seg > 0 ? min(seg, n - first) : n;
+    const int len = static_cast<int>(min(test, int64_t{len_max}));
+    const int64_t stride = seg == 0 && n > len ? n / len : 1;
+    const bool whole = test <= len;
+    if (kStaged && sm.staged != first) {
+      wide_stage(stream, pitch, rows, k, first, stride, 0, len);
+      cp_async_wait<0>();
+      __syncthreads();                 // the stream is in
+      if (threadIdx.x == 0) sm.staged = first;
+    }
+    const double* x = kStaged ? stream : rows + first * k;
+    const int64_t rs = kStaged ? 1 : stride * k, ds = kStaged ? pitch : 1;
+    for (;;) {
+      int g = 0;
+      if (lane == 0) g = atomicAdd(&sm.queue, 1);
+      g = __shfl_sync(kFull, g, 0);
+      if (g >= groups) break;
+      const int64_t m0 = int64_t{g} * G;
+      const double* cand[G];
+      int r_lo[G], r_hi[G];
+      unsigned open = 0;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        cand[u] = cands + (cand0 + min(m0 + u, cands_here - 1)) * k;
+        r_lo[u] = 0;
+        r_hi[u] = len;
+        if (m0 + u < cands_here) open |= 1u << u;
+      }
+      if (kStaged) wide_bounds(ub, lb, 2 * k, cand, k, eps);
+      const unsigned found = wide_unit<kStaged>(
+          x, rs, ds, k, eps, cand, ub, lb, 2 * k, r_lo, r_hi, open, 0, len);
+      // lane u: member u's verdict, and whether it survives
+      const bool mine = lane < G && (open >> lane & 1);
+      const bool dominated = found >> lane & 1;
+      if (mine) out[cand0 + m0 + lane] = dominated;
+      const bool survives = mine && !dominated && !whole;
+      const unsigned appended = __ballot_sync(kFull, survives);
+      if (appended) {
+        int at = 0;
+        if (lane == 0) at = atomicAdd(count, __popc(appended));
+        at = __shfl_sync(kFull, at, 0);
+        if (survives)
+          survivors[at + __popc(appended & ((1u << lane) - 1))] =
+              static_cast<int>(cand0 + m0 + lane);
+      }
+    }
   }
 }
 
-cudaError_t launch_wide(const double* rows, int64_t n, const double* cands,
-                        int64_t c, int64_t k, double eps, int64_t seg,
-                        bool* out, unsigned long long* queue,
-                        cudaStream_t stream) {
+// ---- the wide split
+
+struct WideSmem {
+  // each warp's unit: its members' float64 bounds (k <= kWideStage)
+  double upper[kWarps][kWideGroup][kWideStage];
+  double lower[kWarps][kWideGroup][kWideStage];
+  // each thread's slot: its candidate, the rows of its test, and whether
+  // a unit found it a witness
+  long long cand[kThreads];
+  long long lo[kThreads];
+  long long hi[kThreads];
+  int witness[kThreads];
+  int ids[kThreads];                   // the chunk's live slots
+  int live_in[kWarps];
+  long long hull[2];
+  int item;
+};
+
+// The wide split's dynamic shared memory: WideSmem and, where the rows are
+// staged, two chunk buffers of k columns of wide_chunk_rows(k) + 1 values.
+inline size_t wide_split_smem(int64_t k, bool staged) {
+  return sizeof(WideSmem) +
+         (staged ? 2 * sizeof(double) * k * (wide_chunk_rows(k) + 1) : 0);
+}
+
+// A slab of slots against the rows of their tests.  Thread t's slot, where
+// `live`, is candidate `cand` (sm.cand[t]) against rows [sm.lo[t],
+// sm.hi[t]) (`hi`); [s_lo, s_hi) is the hull of the live slots' rows.  The
+// block walks the hull in chunks of wide_chunk_rows(k) rows, staged
+// double-buffered in `bufs` (kStaged) or read in place.  At each chunk it
+// compacts its live slots into groups of kWideGroup and deals (group,
+// slice of the chunk) units round its warps, more slices where there are
+// few groups, as split_kernel does.  A witness stores true into out[cand]
+// and sets done[slot], which every slot rereads (from L2) before each
+// chunk.
+template <bool kStaged>
+__device__ void wide_walk(WideSmem& sm, double* bufs,
+                          const double* __restrict__ rows, int64_t k,
+                          double eps, const double* __restrict__ cands,
+                          int64_t s_lo, int64_t s_hi, bool live,
+                          int64_t cand, int64_t hi, int64_t slot,
+                          unsigned char* done, bool* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ch = wide_chunk_rows(k), pitch = ch + 1;
+  const int64_t chunks = (s_hi - s_lo + ch - 1) / ch;
+  if (kStaged)
+    wide_stage(bufs, pitch, rows, k, 0, 1, s_lo, min(s_lo + ch, s_hi));
+  int64_t t = 0;
+  for (; t < chunks; ++t) {
+    const int b = t & 1;
+    const int64_t c_lo = s_lo + t * ch;
+    const int64_t c_hi = min(c_lo + ch, s_hi);
+    const int rows_here = static_cast<int>(c_hi - c_lo);
+    const bool more = t + 1 < chunks;
+    if (kStaged) {
+      if (more)
+        wide_stage(bufs + (b ^ 1) * k * pitch, pitch, rows, k, 0, 1, c_hi,
+                   min(c_hi + ch, s_hi));
+      if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+    }
+    // slots that other items have decided since
+    if (t > 0 && live && __ldcg(done + slot)) live = false;
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (lane == 0) sm.live_in[warp] = __popc(ballot);
+    __syncthreads();                   // chunk t is in bufs[b]; live_in
+    int base = 0, live_count = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      base += w < warp ? sm.live_in[w] : 0;
+      live_count += sm.live_in[w];
+    }
+    if (live)
+      sm.ids[base + __popc(ballot & ((1u << lane) - 1))] = threadIdx.x;
+    __syncthreads();
+    const double* x = kStaged ? bufs + b * k * pitch : rows + c_lo * k;
+    const int64_t rs = kStaged ? 1 : k, ds = kStaged ? pitch : 1;
+    const int groups = (live_count + kWideGroup - 1) / kWideGroup;
+    const int slices = groups > 0 && groups < kWarps ? kWarps / groups : 1;
+    const int slice_rows =
+        (rows_here + 32 * slices - 1) / (32 * slices) * 32;
+    for (int unit = warp; unit < groups * slices; unit += kWarps) {
+      const int g = unit % groups;
+      const int u_lo = unit / groups * slice_rows;
+      const int u_hi = min(u_lo + slice_rows, rows_here);
+      if (u_lo >= u_hi) continue;
+      int who[kWideGroup], r_lo[kWideGroup], r_hi[kWideGroup];
+      const double* member[kWideGroup];
+      unsigned open = 0;
+#pragma unroll
+      for (int u = 0; u < kWideGroup; ++u) {
+        const int m = g * kWideGroup + u;
+        who[u] = sm.ids[min(m, live_count - 1)];
+        if (m < live_count) open |= 1u << u;
+        member[u] = cands + sm.cand[who[u]] * k;
+        r_lo[u] = static_cast<int>(
+            min(max(sm.lo[who[u]] - c_lo, 0LL),
+                static_cast<long long>(rows_here)));
+        r_hi[u] = static_cast<int>(
+            min(max(sm.hi[who[u]] - c_lo, 0LL),
+                static_cast<long long>(rows_here)));
+      }
+      if (kStaged)
+        wide_bounds(sm.upper[warp][0], sm.lower[warp][0], kWideStage,
+                    member, k, eps);
+      const unsigned found = wide_unit<kStaged>(
+          x, rs, ds, k, eps, member, sm.upper[warp][0], sm.lower[warp][0],
+          kWideStage, r_lo, r_hi, open, u_lo, u_hi);
+#pragma unroll
+      for (int u = 0; u < kWideGroup; ++u)
+        if ((found >> u & 1) && lane == 0) sm.witness[who[u]] = 1;
+    }
+    __syncthreads();                   // every unit is done with the chunk
+    if (live && sm.witness[threadIdx.x]) {
+      live = false;
+      out[cand] = true;
+      done[slot] = 1;
+    }
+    // a test whose rows end in this chunk is done
+    if (live && hi <= c_hi) live = false;
+    // every thread is done with chunk t before chunk t + 2 overwrites it
+    if (!__syncthreads_or(live)) {
+      ++t;
+      break;
+    }
+  }
+  // a chunk staged ahead of an early stop: let it land before the buffers
+  // are reused
+  if (kStaged && t < chunks) cp_async_wait<0>();
+}
+
+// The wide split: split_kernel's persistent grid, items and done flags,
+// each item's slab of survivors walked through wide_walk.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+    wide_split_kernel(const double* __restrict__ rows, int64_t n,
+                      const double* __restrict__ cands, int64_t k,
+                      double eps, int64_t seg,
+                      const int* __restrict__ survivors,
+                      int* __restrict__ count, bool* __restrict__ out,
+                      unsigned char* __restrict__ done) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem_raw);
+  double* bufs = reinterpret_cast<double*>(smem_raw + sizeof(WideSmem));
+  const int64_t s_count = *reinterpret_cast<volatile int*>(count);
+  if (s_count == 0) return;
+  const SplitItems work = split_items(s_count, n, wide_chunk_rows(k));
+  const int slab_size = work.slab_size;
+  const int64_t slabs = work.slabs, part_rows = work.part_rows;
+  const int64_t items = work.items;
+  for (;;) {
+    __syncthreads();                   // the previous item is done with sm
+    if (threadIdx.x == 0) {
+      sm.item = atomicAdd(count + 1, 1);
+      sm.hull[0] = LLONG_MAX;
+      sm.hull[1] = LLONG_MIN;
+    }
+    __syncthreads();
+    const int64_t item = sm.item;
+    if (item >= items) break;
+    const int64_t slab = item % slabs, part = item / slabs;
+    const int64_t p_lo = part * part_rows, p_hi = min(p_lo + part_rows, n);
+    const int64_t slot = slab * slab_size + threadIdx.x;
+    int64_t cand = 0, lo = p_lo, hi = p_hi;
+    bool live = threadIdx.x < slab_size && slot < s_count;
+    if (live) {
+      cand = survivors[slot];
+      if (seg > 0) {
+        const int64_t b = cand / seg * seg;
+        lo = max(lo, b);
+        hi = min(hi, min(b + seg, n));
+      }
+      live = lo < hi && !__ldcg(done + slot);
+    }
+    if (live) {
+      sm.cand[threadIdx.x] = cand;
+      sm.lo[threadIdx.x] = lo;
+      sm.hi[threadIdx.x] = hi;
+      atomicMin(&sm.hull[0], static_cast<long long>(lo));
+      atomicMax(&sm.hull[1], static_cast<long long>(hi));
+    }
+    sm.witness[threadIdx.x] = 0;
+    __syncthreads();
+    const int64_t s_lo = sm.hull[0], s_hi = sm.hull[1];
+    if (s_lo >= s_hi) continue;        // every survivor of the slab is done
+    wide_walk<kStaged>(sm, bufs, rows, k, eps, cands, s_lo, s_hi, live,
+                       cand, hi, slot, done, out);
+  }
+}
+
+template <bool kStaged>
+cudaError_t launch_wide_screen(const double* rows, int64_t n,
+                               const double* cands, int64_t c, int64_t k,
+                               double eps, int64_t seg, bool* out,
+                               int* survivors, int* count,
+                               cudaStream_t stream) {
+  const int threads = 32 * kWideScreenWarps;
+  const int smem = static_cast<int>(wide_screen_smem(k, kStaged && k > 0));
   int blocks = 0;
-  cudaError_t err = resident_blocks(wide_kernel, 0, &blocks);
+  cudaError_t err = resident_blocks(wide_screen_kernel<kStaged>, smem,
+                                    &blocks, threads);
   if (err != cudaSuccess) return err;
-  // a warp per candidate at most
-  const int64_t work = (c + kWarps - 1) / kWarps;
+  // A slab is a block's share of the candidates, a group for each warp at
+  // least; with seg > 0 each block of rows is cut into such slabs.
+  const int64_t full = int64_t{kWideGroup} * kWideScreenWarps;
+  const int64_t share = (c + blocks - 1) / blocks;
+  const int64_t slab = share > full ? (share + full - 1) / full * full : full;
+  const int64_t block_cands = seg > 0 && seg < n ? seg : c;
+  const int64_t work = (seg > 0 ? (n + seg - 1) / seg : 1) *
+                       ((block_cands + slab - 1) / slab);
   const unsigned grid = static_cast<unsigned>(work < blocks ? work : blocks);
-  wide_kernel<<<grid, kThreads, 0, stream>>>(rows, n, cands, c, k, eps, seg,
-                                             out, queue);
+  wide_screen_kernel<kStaged><<<grid, threads, smem, stream>>>(
+      rows, n, cands, c, k, eps, seg, static_cast<int>(slab), out,
+      survivors, count);
+  return cudaGetLastError();
+}
+
+template <bool kStaged>
+cudaError_t launch_wide_split(const double* rows, int64_t n,
+                              const double* cands, int64_t k, double eps,
+                              int64_t seg, const int* survivors, int* count,
+                              bool* out, unsigned char* done,
+                              cudaStream_t stream) {
+  const int smem = static_cast<int>(wide_split_smem(k, kStaged));
+  int blocks = 0;
+  cudaError_t err = resident_blocks(wide_split_kernel<kStaged>, smem,
+                                    &blocks);
+  if (err != cudaSuccess) return err;
+  wide_split_kernel<kStaged><<<static_cast<unsigned>(blocks), kThreads, smem,
+                               stream>>>(rows, n, cands, k, eps, seg,
+                                         survivors, count, out, done);
   return cudaGetLastError();
 }
 
@@ -949,8 +1429,14 @@ int pareto_dominated_max_objectives() { return kMaxObjectives; }
 // The most rows the screen pass tests a candidate against.
 int pareto_dominated_screen_rows() { return kScreenRows; }
 
-// The most objectives whose bounds the wide kernel stages in shared memory.
+// The most objectives the wide kernels stage in shared memory (the rows
+// and the candidates' bounds); they read more in place.
 int pareto_dominated_wide_stage() { return kWideStage; }
+
+// The most rows the wide screen tests a candidate against for k objectives.
+int pareto_dominated_wide_screen_rows(int k) {
+  return k > 0 ? wide_screen_rows(k) : kScreenRows;
+}
 
 // The screen pass: dominated (c,) bool for candidates (c, k) against rows
 // (n, k), float64, contiguous, on the device; seg > 0 tests candidate i
@@ -960,8 +1446,8 @@ int pareto_dominated_wide_stage() { return kWideStage; }
 // in count[0], and count[2] is its queue; count[0..2] must be 0.
 // Launches one kernel on `stream`
 // and returns its CUDA error code (0 on success; cudaErrorInvalidValue for
-// k outside 1..kMaxObjectives, which pareto_dominated_wide takes, or a
-// count outside 0..2^31 - 1).
+// k outside 1..kMaxObjectives, which pareto_dominated_wide_screen takes,
+// or a count outside 0..2^31 - 1).
 int pareto_dominated_screen(const double* rows, int64_t n,
                             const double* cands, int64_t c, int k,
                             double eps, int64_t seg, bool* out,
@@ -1004,19 +1490,42 @@ int pareto_dominated_split(const double* rows, int64_t n,
   }
 }
 
-// The wide kernel, for any objective count k >= 0 (the binding sends it
-// k > kMaxObjectives and k = 0): dominated (c,) bool for candidates (c, k)
-// against rows (n, k), float64, contiguous, on the device, with seg as
-// above; `queue` (one 64-bit counter) must be 0.  Launches one kernel on
-// `stream` and returns its CUDA error code (cudaErrorInvalidValue for k < 0
-// or a count outside 0..2^31 - 1).
-int pareto_dominated_wide(const double* rows, int64_t n,
-                          const double* cands, int64_t c, int k,
-                          double eps, int64_t seg, bool* out,
-                          unsigned long long* queue, cudaStream_t stream) {
+// The wide screen, for any objective count k >= 0 (the binding sends it
+// k > kMaxObjectives and k = 0), with the operands, `survivors` and
+// `count` of pareto_dominated_screen (count[2] its queue), tests of at
+// most pareto_dominated_wide_screen_rows(k) rows decided whole: every
+// verdict, and the survivors the wide split takes.  Launches one kernel on
+// `stream` (a persistent grid) and returns its CUDA error code
+// (cudaErrorInvalidValue for k < 0 or a count outside 0..2^31 - 1).
+int pareto_dominated_wide_screen(const double* rows, int64_t n,
+                                 const double* cands, int64_t c, int k,
+                                 double eps, int64_t seg, bool* out,
+                                 int* survivors, int* count,
+                                 cudaStream_t stream) {
   if (!valid(n, c, seg) || k < 0) return cudaErrorInvalidValue;
   if (c == 0) return cudaSuccess;
-  return launch_wide(rows, n, cands, c, k, eps, seg, out, queue, stream);
+  return k <= kWideStage
+             ? launch_wide_screen<true>(rows, n, cands, c, k, eps, seg, out,
+                                        survivors, count, stream)
+             : launch_wide_screen<false>(rows, n, cands, c, k, eps, seg, out,
+                                         survivors, count, stream);
+}
+
+// The wide split, after the wide screen on the same stream and operands,
+// as pareto_dominated_split is after the screen (k >= 1).  Launches one
+// kernel on `stream` (a persistent grid) and returns its CUDA error code.
+int pareto_dominated_wide_split(const double* rows, int64_t n,
+                                const double* cands, int64_t c, int k,
+                                double eps, int64_t seg, bool* out,
+                                const int* survivors, int* count,
+                                unsigned char* done, cudaStream_t stream) {
+  if (!valid(n, c, seg) || k < 1) return cudaErrorInvalidValue;
+  if (c == 0 || n == 0) return cudaSuccess;
+  return k <= kWideStage
+             ? launch_wide_split<true>(rows, n, cands, k, eps, seg,
+                                       survivors, count, out, done, stream)
+             : launch_wide_split<false>(rows, n, cands, k, eps, seg,
+                                        survivors, count, out, done, stream);
 }
 
 const char* pareto_dominated_error_string(int err) {

@@ -19,9 +19,9 @@ them against their plain versions there).  Here:
 * the dominance kernel's two passes as far as the CPU can see them: which
   passes a call launches (``passes``), the source's constants against the
   binding's and the edge sets', and the edge sets' witnesses on the
-  boundaries the passes split the rows at; the wide kernel's objective
-  counts (more than ``MAX_OBJECTIVES``, and none) past the binding's
-  objective check;
+  boundaries the passes split the rows at, the wide passes' chunks
+  included; the wide kernels' objective counts (more than
+  ``MAX_OBJECTIVES``, and none) past the binding's objective check;
 * the CPU route of ``batched.pareto_mask`` (two passes of the plain
   version) against the plain version over all pairs on every edge set.
 
@@ -44,8 +44,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.lattice_rollup import kernel as rollup_kernel
 from repro_torch.kernels.pareto_dominated import kernel as dom_kernel
 from repro_torch.parallel import host_spec_mesh, spec_sweep_mesh
-from torch_dominance_cases import (boundary_rows, chunk_rows,
-                                   dominance_cases)
+from torch_dominance_cases import (WIDE_CHUNK, WIDE_ROWS, boundary_rows,
+                                   chunk_rows, dominance_cases)
 
 EPS = P.PARETO_EPS
 CASES = dominance_cases(EPS, seed=0)
@@ -298,11 +298,21 @@ def test_passes_a_call_launches(n, c, seg, want):
     assert dom_kernel.passes(n, c, seg) == want
 
 
+WIDE = ("wide_screen", "wide_split")
+
+
 @pytest.mark.parametrize("n,c,seg,k,want", [
-    (100, 100, 0, 0, ("wide",)),
-    (100, 100, 0, 9, ("wide",)),
-    (138_348, 138_348, 0, 12, ("wide",)),
-    (5000, 5000, R + 1, 64, ("wide",)),
+    (100, 100, 0, 0, WIDE[:1]),
+    (100, 100, 0, 9, WIDE[:1]),
+    (R, 9, 0, 12, WIDE[:1]),
+    (R + 1, 9, 0, 9, WIDE),
+    (R + 1, R + 1, 0, 0, WIDE[:1]),
+    (138_348, 138_348, 0, 12, WIDE),
+    (5000, 5000, dom_kernel.screen_rows(64), 64, WIDE[:1]),
+    (5000, 5000, dom_kernel.screen_rows(64) + 1, 64, WIDE),
+    (5000, 5000, R, 64, WIDE),
+    (5000, 5000, R + 1, 80, WIDE),
+    (5000, 5000, R + 1, 0, WIDE[:1]),
     (5, 0, 0, 12, ()),
     (5, 0, 0, 0, ()),
     (R + 1, 9, 0, dom_kernel.MAX_OBJECTIVES, ("screen", "split")),
@@ -322,6 +332,27 @@ def test_source_constants_equal_the_binding_and_the_edge_sets():
                           r": (\d+);\s*\}", text).groups()
     for k in range(1, dom_kernel.MAX_OBJECTIVES + 1):
         assert chunk_rows(k) == int(few if k <= 4 else many)
+    # the wide kernels' chunks and the wide screen's stream
+    assert int(const["kWideChunk"]) == WIDE_CHUNK
+    assert int(const["kWideRows"]) == WIDE_ROWS
+    assert int(const["kWideScreenValues"]) == dom_kernel.WIDE_SCREEN_VALUES
+    assert int(const["kWideScreenWarps"]) == dom_kernel.WIDE_SCREEN_WARPS
+    assert int(const["kWideGroup"]) == dom_kernel.WIDE_GROUP
+    assert re.search(r"wide_screen_rows\(int64_t k\) \{\s*if \(k > "
+                     r"kWideStage\) return kScreenRows;\s*const int64_t rows ="
+                     r"\s*\(kWideScreenValues / k - 1 - 2 \* kWideGroup \* "
+                     r"kWideScreenWarps\) / 32 \*\s*32;\s*return static_cast"
+                     r"<int>\(rows < kScreenRows \? rows : kScreenRows\);",
+                     text)
+    assert [dom_kernel.screen_rows(k) for k in (8, 9, 24, 28, 64, 65)] == \
+        [R, R, R, 928, 352, R]
+    assert re.search(r"wide_chunk_rows\(int64_t k\) \{\s*return k <= "
+                     r"kWideStage \? static_cast<int>\(kWideChunk / k\) / 32 "
+                     r"\* 32\s*: kWideRows;\s*\}", text)
+    for k in range(dom_kernel.MAX_OBJECTIVES + 1, 200):
+        want = (WIDE_CHUNK // k // 32 * 32 if k <= dom_kernel.WIDE_STAGE
+                else WIDE_ROWS)
+        assert chunk_rows(k) == want and want % 32 == 0 and want >= 32
 
 
 def test_edge_sets_reach_both_passes():
@@ -340,23 +371,48 @@ def test_edge_sets_reach_both_passes():
 def test_wide_edge_sets_take_the_wide_kernel():
     wide = [c.name for c in CASES
             if dom_kernel.passes(len(c.rows), len(c.cands), c.seg,
-                                 c.rows.shape[1]) == ("wide",)]
+                                 c.rows.shape[1])[0] == "wide_screen"]
     assert wide == ["random_k9", "random_k12", "random_k16", "random_k64",
                     "near_ties_k12", "boundary_witnesses_k12",
-                    "seg_300_k12", "k0"]
+                    "seg_300_k12", "k0", "boundary_witnesses_k9",
+                    f"boundary_witnesses_k{dom_kernel.WIDE_STAGE}",
+                    "boundary_witnesses_k80", "seg_boundary_witnesses_k12",
+                    "seg_boundary_witnesses_k80", "simplex_k80"]
+
+
+def test_wide_edge_sets_reach_both_wide_passes():
+    split = [c.name for c in CASES
+             if "wide_split" in dom_kernel.passes(
+                 len(c.rows), len(c.cands), c.seg, c.rows.shape[1])]
+    assert split == ["random_k64", "near_ties_k12", "boundary_witnesses_k12",
+                     "boundary_witnesses_k9",
+                     f"boundary_witnesses_k{dom_kernel.WIDE_STAGE}",
+                     "boundary_witnesses_k80", "seg_boundary_witnesses_k12",
+                     "seg_boundary_witnesses_k80", "simplex_k80"]
+    # past the staging limit, and the sets whose tests are longer than the
+    # screen's rows
+    assert max(c.rows.shape[1] for c in CASES) > dom_kernel.WIDE_STAGE
+    assert all(c.seg > R for c in CASES
+               if c.name.startswith("seg_boundary_witnesses_k"))
 
 
 @pytest.mark.parametrize("name", [
     "boundary_witnesses_k2", "boundary_witnesses_k3",
     f"boundary_witnesses_k{dom_kernel.MAX_OBJECTIVES}",
-    "boundary_witnesses_k12"])
+    "boundary_witnesses_k12", "boundary_witnesses_k9",
+    f"boundary_witnesses_k{dom_kernel.WIDE_STAGE}", "boundary_witnesses_k80"])
 def test_boundary_witnesses_sit_on_the_boundaries(name):
     case = next(c for c in CASES if c.name == name)
     n, k = case.rows.shape
-    at = boundary_rows(n, k)
+    at, budget, ch = boundary_rows(n, k), dom_kernel.screen_rows(k), \
+        chunk_rows(k)
     # the sampled rows, the budget, chunk starts and ends, the last row
-    assert {0, R - 1, R, chunk_rows(k) - 1, chunk_rows(k), n - 1} <= set(at)
-    assert (R - 1) * (n // R) in at
+    assert {0, budget - 1, budget, ch - 1, ch, n - 1} <= set(at)
+    assert (budget - 1) * (n // budget) in at
+    if k > dom_kernel.MAX_OBJECTIVES:
+        # every chunk start and end of the wide split (its partitions are
+        # whole chunks)
+        assert {r for m in range(ch, n, ch) for r in (m - 1, m)} <= set(at)
     dom = np.stack([R_pareto.chunk_dominated(case.rows[r:r + 1], case.cands,
                                              EPS) for r in range(n)])
     assert [list(np.flatnonzero(dom[:, j])) for j in range(len(at))] == \
@@ -373,6 +429,29 @@ def test_seg_boundary_witnesses_sit_on_either_side_of_the_budget():
         dom = R_pareto.chunk_dominated(blk[w:w + 1], blk, EPS)
         assert dom[5] and R_pareto.chunk_dominated(
             np.delete(blk, w, axis=0), blk[5:6], EPS).tolist() == [False]
+
+
+@pytest.mark.parametrize("name", ["seg_boundary_witnesses_k12",
+                                  "seg_boundary_witnesses_k80"])
+def test_wide_seg_boundary_witnesses_sit_on_every_chunk_boundary(name):
+    """Each block of a wide ``seg`` set longer than the screen's budget
+    holds its candidates on its first rows off the boundaries and their
+    only witnesses on the budget, every chunk start and end of the wide
+    passes and the block's last row."""
+    case = next(c for c in CASES if c.name == name)
+    seg, k = case.seg, case.rows.shape[1]
+    at = boundary_rows(seg, k, seg)
+    ch, budget = chunk_rows(k), dom_kernel.screen_rows(k)
+    assert seg > budget and {budget - 1, budget, seg - 1} <= set(at)
+    assert {r for m in range(ch, seg, ch) for r in (m - 1, m)} <= set(at)
+    cand_rows = [r for r in range(seg) if r not in set(at)][:len(at)]
+    for s in range(0, len(case.rows), seg):
+        blk = case.rows[s:s + seg]
+        dom = np.stack([R_pareto.chunk_dominated(blk[r:r + 1],
+                                                 blk[cand_rows], EPS)
+                        for r in range(seg)])
+        assert [list(np.flatnonzero(dom[:, j])) for j in range(len(at))] \
+            == [[r] for r in at]
 
 
 @pytest.mark.parametrize("k", [0, 9, 12])

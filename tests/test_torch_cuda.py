@@ -291,26 +291,60 @@ def test_dominance_split_pass_takes_the_screens_survivors(cuda_device):
         assert torch.equal(got, dominated_ref(rows, cands, eps, case.seg))
 
 
-@pytest.mark.parametrize("k", [0, 9, 12, 64])
-@pytest.mark.parametrize("seg", [0, 100])
+@pytest.mark.parametrize("k", [0, 9, 12, 64, 80])
+@pytest.mark.parametrize("seg", [0, 100, 1100])
 def test_dominance_wide_route_equals_plain_version(cuda_device, k, seg):
     """More objectives than the screen takes, and none, go to the wide
-    kernel: one launch, counted under ``wide``, the plain version's
-    verdicts (every one False at k = 0)."""
+    kernels: the wide screen, and the wide split where a test is longer
+    than the screen's rows (never at k = 0), each counted under its pass,
+    with the plain version's verdicts (every one False at k = 0).  80
+    objectives are past the staging limit (rows and bounds read in
+    place)."""
     rng = np.random.default_rng(k)
     objs = np.floor(rng.random((1500, k)) * 3) * 1e-3
     rows = torch.as_tensor(objs, device=cuda_device)
     before = dict(dom_kernel.PASS_LAUNCHES)
     got = P.dominated(rows, rows, P.PARETO_EPS, seg=seg)
     torch.cuda.synchronize()
-    assert dom_kernel.PASS_LAUNCHES == {**before,
-                                        "wide": before["wide"] + 1}
+    ran = dom_kernel.passes(1500, 1500, seg, k)
+    assert ran == (("wide_screen",) if k == 0 else
+                   ("wide_screen", "wide_split") if seg in (0, 1100) else
+                   ("wide_screen",))
+    assert dom_kernel.PASS_LAUNCHES == {
+        name: v + (name in ran) for name, v in before.items()}
     want = dominated_ref(rows, rows, P.PARETO_EPS, seg)
     assert torch.equal(got, want)
     if k == 0:
         assert not got.any()
     elif k <= 12:
         assert got.any() and not got.all()
+
+
+def test_dominance_wide_route_fills_stats(cuda_device):
+    """The wide passes fill ``stats`` as the narrow ones do: the survivors
+    the wide screen left to the wide split (at least the 800 simplex points
+    of ``simplex_k80`` that nothing dominates, fewer than all 2,400; every
+    candidate of ``boundary_witnesses_k80`` whose witness is not a sampled
+    row, some but not all; none at k = 0, where no split runs) and three
+    CUDA events around the passes."""
+    eps = P.PARETO_EPS
+    by_name = {c.name: c for c in DOMINANCE_CASES}
+    for name, check in (("simplex_k80", lambda s, c: 800 <= s < c),
+                        ("boundary_witnesses_k80", lambda s, c: 0 < s < c),
+                        ("k0", lambda s, c: s == 0)):
+        case = by_name[name]
+        rows = torch.as_tensor(case.rows, device=cuda_device)
+        cands = torch.as_tensor(case.cands, device=cuda_device)
+        stats = {}
+        got = dom_kernel.pareto_dominated_cuda(rows, cands, eps, case.seg,
+                                               stats=stats)
+        torch.cuda.synchronize()
+        survivors = int(stats["survivors"].item())
+        assert check(survivors, len(case.cands)), (name, survivors)
+        e = stats["events"]
+        assert len(e) == 3 and all(
+            a.elapsed_time(b) >= 0 for a, b in zip(e, e[1:]))
+        assert torch.equal(got, dominated_ref(rows, cands, eps, case.seg))
 
 
 def _rollup_operands(specs, device):

@@ -28,6 +28,18 @@ only witness at a boundary row at 12, block-local tests at 12, and no
 objective at all (every verdict False).  :func:`wide_tie_points` draws a
 larger set of near ties at any objective count.
 
+Then sets for the wide kernels' two passes (a wide screen against at most
+``screen_rows(k)`` rows, and a wide split in chunks of ``chunk_rows(k)``
+rows: staged up to ``WIDE_STAGE`` objectives, read in place above), from a
+third generator: each candidate's only witness at a sampled row, the
+screen budget, every chunk (and so every partition) start and end of the
+split and the last row, at 9 and 64 objectives (where the screen's budget
+is shorter) and at 80, past the staging limit;
+``seg`` blocks longer than the budget whose candidates' only witnesses sit
+on every chunk boundary of their block, at 12 and 80; and points on the
+simplex at 80 objectives with others each moved up from one of them, where
+both verdicts occur and the screen leaves survivors to the split.
+
 :func:`dominance_cases` draws them from a numpy seed, so the CPU tests
 (``test_torch_compiler_kernels.py``), the card tests
 (``test_torch_cuda.py``) and ``chip_smoke.py`` share them.  It imports
@@ -41,7 +53,14 @@ from typing import NamedTuple
 import numpy as np
 
 from repro_torch.kernels.pareto_dominated.kernel import (MAX_OBJECTIVES,
-                                                         SCREEN_ROWS)
+                                                         SCREEN_ROWS,
+                                                         WIDE_STAGE,
+                                                         screen_rows)
+
+#: The wide kernels' chunks: float64 values per staged chunk buffer
+#: (``kWideChunk`` in the source), and rows per chunk where the rows are
+#: read in place (``kWideRows``).
+WIDE_CHUNK, WIDE_ROWS = 4096, 256
 
 
 class DominanceCase(NamedTuple):
@@ -87,23 +106,38 @@ def wide_tie_points(n: int, k: int, eps: float, seed: int) -> np.ndarray:
 
 
 def chunk_rows(k: int) -> int:
-    """Rows per chunk of the split pass for ``k`` objectives
-    (``chunk_rows<K>()`` in the source)."""
-    return 1024 if k <= 4 else 512
+    """Rows per chunk of the split pass for 1 to ``MAX_OBJECTIVES``
+    objectives (``chunk_rows<K>()`` in the source), and of both wide passes
+    for more (``wide_chunk_rows``): whole warps of as many rows as
+    ``WIDE_CHUNK`` values hold up to ``WIDE_STAGE`` objectives, else
+    ``WIDE_ROWS``."""
+    if k <= MAX_OBJECTIVES:
+        return 1024 if k <= 4 else 512
+    return WIDE_CHUNK // k // 32 * 32 if k <= WIDE_STAGE else WIDE_ROWS
+
+
+def _chunk_ends(chunk: int, stop: int) -> set[int]:
+    """The first and last row of every chunk boundary in [chunk, stop)."""
+    return {r for m in range(chunk, stop, chunk) for r in (m - 1, m)}
 
 
 def boundary_rows(n: int, k: int, seg: int = 0) -> list[int]:
     """The rows a test of ``n`` rows (or of a ``seg`` block) starts, ends or
-    changes hands at: the screen's sampled rows and budget, the split
-    pass's chunks, the last row."""
-    chunk = chunk_rows(k)
+    changes hands at: the screen's sampled rows and budget
+    (``screen_rows(k)``), the split pass's chunks, the last row.  For the
+    wide kernels (more than ``MAX_OBJECTIVES`` objectives) every chunk
+    start and end of the wide split, whose partitions are whole chunks."""
+    chunk, budget = chunk_rows(k), screen_rows(k)
+    wide = k > MAX_OBJECTIVES
     if seg:
-        return sorted({SCREEN_ROWS - 1, SCREEN_ROWS, chunk - 1, chunk,
-                       seg - 1})
-    stride = max(1, n // SCREEN_ROWS)
-    out = {0, stride, SCREEN_ROWS - 1, SCREEN_ROWS, chunk - 1, chunk,
-           2 * chunk - 1, 2 * chunk, (SCREEN_ROWS - 1) * stride,
-           (SCREEN_ROWS - 1) * stride + 1, n - 1}
+        out = {budget - 1, budget, chunk - 1, chunk, seg - 1}
+        return sorted(out | _chunk_ends(chunk, seg) if wide else out)
+    stride = max(1, n // budget)
+    out = {0, stride, budget - 1, budget, chunk - 1, chunk, 2 * chunk - 1,
+           2 * chunk, (budget - 1) * stride, (budget - 1) * stride + 1,
+           n - 1}
+    if wide:
+        out |= _chunk_ends(chunk, n)
     return sorted(r for r in out if 0 <= r < n)
 
 
@@ -203,6 +237,44 @@ def _wide_cases(rng, eps: float) -> list[DominanceCase]:
     return out
 
 
+def _simplex_parents(rng, n: int, k: int) -> np.ndarray:
+    """A third of ``n`` points on the simplex (sum 1: none dominates
+    another), and the rest each one of them moved up by up to 0.01 in every
+    objective (dominated by it, and by some other simplex points), shuffled:
+    both verdicts occur in the hundreds at any objective count."""
+    front = rng.dirichlet(np.ones(k), n // 3)
+    moved = (front[rng.integers(0, len(front), n - len(front))]
+             + rng.uniform(1e-4, 1e-2, (n - len(front), k)))
+    objs = np.concatenate([front, moved])
+    rng.shuffle(objs)
+    return objs
+
+
+def _seg_witness_blocks(seg: int, k: int, blocks: int) -> np.ndarray:
+    """``blocks`` blocks of ``seg`` rows, each holding the candidates of
+    :func:`_sole_witnesses` on its first rows off the boundaries and their
+    only witnesses on ``boundary_rows(seg, k, seg)``, the other rows +10
+    (dominated by both)."""
+    at = boundary_rows(seg, k, seg)
+    blk, cands = _sole_witnesses(seg, k, at)
+    blk[[r for r in range(seg) if r not in set(at)][:len(at)]] = cands
+    return np.concatenate([blk] * blocks)
+
+
+def _wide_split_cases(rng) -> list[DominanceCase]:
+    out = []
+    for k in (9, WIDE_STAGE, 80):
+        rows, cands = _sole_witnesses(2600, k, boundary_rows(2600, k))
+        out.append(DominanceCase(f"boundary_witnesses_k{k}", rows, cands, 0))
+    for k in (12, 80):
+        objs = _seg_witness_blocks(SCREEN_ROWS + 476, k, 2)
+        out.append(DominanceCase(f"seg_boundary_witnesses_k{k}", objs, objs,
+                                 SCREEN_ROWS + 476))
+    objs = _simplex_parents(rng, 2400, 80)
+    out.append(DominanceCase("simplex_k80", objs, objs, 0))
+    return out
+
+
 def dominance_cases(eps: float, seed: int = 0) -> list[DominanceCase]:
     """The edge sets for the tie band ``eps``, drawn from ``seed``."""
     rng = np.random.default_rng(seed)
@@ -244,4 +316,5 @@ def dominance_cases(eps: float, seed: int = 0) -> list[DominanceCase]:
     chain = np.stack([x, 1.0 - x], axis=1)
     out.append(DominanceCase("antichain_10k", chain, chain, 0))
     return (out + _two_pass_cases(rng, eps)
-            + _wide_cases(np.random.default_rng(seed + 1), eps))
+            + _wide_cases(np.random.default_rng(seed + 1), eps)
+            + _wide_split_cases(np.random.default_rng(seed + 2)))
