@@ -25,11 +25,13 @@ The ``--dcim-*`` flag cluster is one typed posture,
 :class:`repro_torch.serve.config.ServeConfig`: ``--dcim-config PATH`` loads
 it from a JSON artifact and every explicitly-passed flag overrides the file.
 
-``--dcim-trace PATH`` turns on :mod:`repro_torch.obs` request tracing for
-the launch: the selection pass runs through a
+``--dcim-trace PATH`` turns on :mod:`repro_torch.obs` tracing for the
+launch: the selection pass runs through a
 :class:`repro_torch.service.ServiceFrontend` (so every request carries real
-queued -> batched -> served timestamps) and a Chrome-trace JSON lands at
-PATH.  ``--dcim-kernel-profile PATH`` feeds a measured
+queued -> batched -> served timestamps), the prefill and every decode step
+record their layer spans (``serve.prefill`` / ``serve.decode_step`` over
+``attn``, ``moe.route``, ``moe.experts``, ``mamba`` and ``fake_quant``),
+and a Chrome-trace JSON of both lands at PATH.  ``--dcim-kernel-profile PATH`` feeds a measured
 ``scripts/torch_profile_kernels.py --json`` artifact into the serving
 roofline (``kernel_fraction`` derate).
 
@@ -131,7 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enable request tracing and write a Chrome-trace "
                          "JSON (ui.perfetto.dev) of the launch: per-request "
                          "queued/batched/served spans, cache-tier probes, "
-                         "engine phases, kernel dispatches")
+                         "engine phases, kernel dispatches, and the "
+                         "prefill's and decode steps' layer spans")
     ap.add_argument("--dcim-trace-sample", type=float, default=None,
                     metavar="F", help="head sampling rate for --dcim-trace "
                                       "in (0, 1] (default 1.0)")

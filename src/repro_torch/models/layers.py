@@ -41,6 +41,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from ..obs import tracer
 from ..parallel.sharding import constrain_act
 from ..parallel.zero import whole
 from ..quant import fake_quant
@@ -394,59 +395,62 @@ class Attention(nn.Module):
         The caches (``kv_cache['k']`` / ``['v']``, (B, T, Hkv, D)) are
         written in place, where the reference returns updated copies (and
         donates the old buffers).  ``kv_override`` supplies external K/V
-        (cross-attention).
+        (cross-attention).  The whole call is an ``attn`` span.
         """
-        cfg = self.cfg
-        b, s, _ = x.shape
-        hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        g = hq // hkv
-        q = self.wq(x).reshape(b, s, hq, hd)
-        if kv_override is None:
-            k = self.wk(x).reshape(b, s, hkv, hd)
-            v = self.wv(x).reshape(b, s, hkv, hd)
-        else:
-            k, v = kv_override
-        if cfg.qk_norm:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
-        if positions is not None:
-            q = rope(q, positions, cfg.rope_theta)
+        with tracer.span("attn"):
+            cfg = self.cfg
+            b, s, _ = x.shape
+            hd, hq, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+            g = hq // hkv
+            q = self.wq(x).reshape(b, s, hq, hd)
             if kv_override is None:
-                k = rope(k, positions, cfg.rope_theta)
+                k = self.wk(x).reshape(b, s, hkv, hd)
+                v = self.wv(x).reshape(b, s, hkv, hd)
+            else:
+                k, v = kv_override
+            if cfg.qk_norm:
+                q = self.q_norm(q)
+                k = self.k_norm(k)
+            if positions is not None:
+                q = rope(q, positions, cfg.rope_theta)
+                if kv_override is None:
+                    k = rope(k, positions, cfg.rope_theta)
 
-        if kv_cache is not None and prefill_fill:
-            kv_cache["k"][:, :s] = k.to(kv_cache["k"].dtype)
-            kv_cache["v"][:, :s] = v.to(kv_cache["v"].dtype)
-            out = blockwise_attention(q, k, v, causal=causal,
-                                      q_block=cfg.attn_q_block,
-                                      kv_block=cfg.attn_kv_block)
-        elif kv_cache is not None:
-            ck, cv = kv_cache["k"], kv_cache["v"]
-            t = ck.shape[1]
-            steps = torch.arange(s, device=x.device)
-            # the reference's dynamic_update_slice clamps the start
-            idx = torch.clamp(cache_pos, max=t - s) + steps
-            ck.index_copy_(1, idx, k.to(ck.dtype))
-            cv.index_copy_(1, idx, v.to(cv.dtype))
-            qg = q.reshape(b, s, hkv, g, hd) / _scalar(math.sqrt(hd), q)
-            scores = torch.einsum("bskgd,btkd->bkgst", qg, ck.to(x.dtype))
-            tpos = torch.arange(t, device=x.device)
-            mask = tpos[None, :] <= (cache_pos + steps)[:, None]
-            scores = torch.where(mask[None, None, None],
-                                 scores.to(torch.float32),
-                                 torch.tensor(-1e30, device=x.device))
-            w = torch.softmax(scores, dim=-1).to(x.dtype)
-            out = torch.einsum("bkgst,btkd->bskgd", w, cv.to(x.dtype))
-            out = out.reshape(b, s, hq, hd)
-        else:
-            # K/V gathered across any sequence sharding once, before the
-            # q-block loop
-            k = constrain_act(k, ("batch", "attn_kv_seq", "act_heads", None))
-            v = constrain_act(v, ("batch", "attn_kv_seq", "act_heads", None))
-            out = blockwise_attention(q, k, v, causal=causal,
-                                      q_block=cfg.attn_q_block,
-                                      kv_block=cfg.attn_kv_block)
-        return self.wo(out.reshape(b, s, hq * hd))
+            if kv_cache is not None and prefill_fill:
+                kv_cache["k"][:, :s] = k.to(kv_cache["k"].dtype)
+                kv_cache["v"][:, :s] = v.to(kv_cache["v"].dtype)
+                out = blockwise_attention(q, k, v, causal=causal,
+                                          q_block=cfg.attn_q_block,
+                                          kv_block=cfg.attn_kv_block)
+            elif kv_cache is not None:
+                ck, cv = kv_cache["k"], kv_cache["v"]
+                t = ck.shape[1]
+                steps = torch.arange(s, device=x.device)
+                # the reference's dynamic_update_slice clamps the start
+                idx = torch.clamp(cache_pos, max=t - s) + steps
+                ck.index_copy_(1, idx, k.to(ck.dtype))
+                cv.index_copy_(1, idx, v.to(cv.dtype))
+                qg = q.reshape(b, s, hkv, g, hd) / _scalar(math.sqrt(hd), q)
+                scores = torch.einsum("bskgd,btkd->bkgst", qg, ck.to(x.dtype))
+                tpos = torch.arange(t, device=x.device)
+                mask = tpos[None, :] <= (cache_pos + steps)[:, None]
+                scores = torch.where(mask[None, None, None],
+                                     scores.to(torch.float32),
+                                     torch.tensor(-1e30, device=x.device))
+                w = torch.softmax(scores, dim=-1).to(x.dtype)
+                out = torch.einsum("bkgst,btkd->bskgd", w, cv.to(x.dtype))
+                out = out.reshape(b, s, hq, hd)
+            else:
+                # K/V gathered across any sequence sharding once, before the
+                # q-block loop
+                k = constrain_act(k, ("batch", "attn_kv_seq", "act_heads",
+                                   None))
+                v = constrain_act(v, ("batch", "attn_kv_seq", "act_heads",
+                                   None))
+                out = blockwise_attention(q, k, v, causal=causal,
+                                          q_block=cfg.attn_q_block,
+                                          kv_block=cfg.attn_kv_block)
+            return self.wo(out.reshape(b, s, hq * hd))
 
 
 # ---------------------------------------------------------------------------

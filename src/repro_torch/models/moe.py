@@ -37,6 +37,7 @@ import math
 import torch
 from torch import nn
 
+from ..obs import tracer
 from ..parallel.sharding import constrain_act
 from ..parallel.zero import (dp_all_rows, dp_mean, dp_size_now,
                              single_batch_rank)
@@ -126,7 +127,12 @@ class MoeMlp(nn.Module):
     def _grouped(self, x: torch.Tensor, groups_global: bool = False
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """The layer on the tokens of ``x`` in groups of ``MOE_GROUP``
-        (``groups_global``: ``x`` is the global batch)."""
+        (``groups_global``: ``x`` is the global batch).  The router and the
+        slot assignment run in a ``moe.route`` span, tagged with the
+        capacity count: ``routed`` assignments (G·S·top_k), ``slots``
+        (G·E·C, what the expert einsums compute) and ``kept``, those that
+        found a slot (a device scalar, resolved when the spans are read).
+        The dispatch, the experts and the combine run in ``moe.experts``."""
         cd = x.dtype
         b, s, d = x.shape
         e, k = self.cfg.moe.n_experts, self.cfg.moe.top_k
@@ -139,33 +145,38 @@ class MoeMlp(nn.Module):
                             f"(size {toks * d}) into shape {(gcount, sg, d)} "
                             f"(size {gcount * sg * d})")
         xg = x.reshape(gcount, sg, d)
-        logits = torch.matmul(xg.to(torch.float32),
-                              L.whole(self.router).to(torch.float32))
-        gates = torch.softmax(logits, dim=-1)
         cap = max(1, int(math.ceil(sg * k / e * self.cfg.moe.capacity_factor)))
-        # global groups: their aux is the global one already
-        with single_batch_rank() if groups_global else \
-                contextlib.nullcontext():
-            dispatch, combine, aux = _top_k_dispatch(gates, k, cap)
-
-        # dispatch: (G,Sg,E,C) x (G,Sg,d) -> (E,G,C,d)
-        xin = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), xg)
-        xin = constrain_act(xin, ("experts", "batch", None, None))
-        wg, wu, wd = (L.whole(w).to(cd) for w in (self.w_gate, self.w_up,
-                                                  self.w_down))
-        if self.enabled:
-            wg = fake_quant(wg, self.w_bits, 1)
-            wu = fake_quant(wu, self.w_bits, 1)
-            wd = fake_quant(wd, self.w_bits, 1)
-            xin = fake_quant(xin, self.a_bits, -1)
-        gate = torch.einsum("egcd,edf->egcf", xin, wg)
-        h = gate * torch.sigmoid(gate) * torch.einsum("egcd,edf->egcf", xin,
-                                                      wu)
-        hout = torch.einsum("egcf,efd->egcd", h, wd)
-        hout = constrain_act(hout, ("experts", "batch", None, None))
-        # combine back: (G,Sg,E,C) x (E,G,C,d) -> (G,Sg,d)
-        y = torch.einsum("gsec,egcd->gsd", combine.to(cd), hout)
-        y = constrain_act(y, ("batch", None, None))
+        with tracer.span("moe.route") as route:
+            logits = torch.matmul(xg.to(torch.float32),
+                                  L.whole(self.router).to(torch.float32))
+            gates = torch.softmax(logits, dim=-1)
+            # global groups: their aux is the global one already
+            with single_batch_rank() if groups_global else \
+                    contextlib.nullcontext():
+                dispatch, combine, aux = _top_k_dispatch(gates, k, cap)
+            if route:
+                route.set_tag("routed", gcount * sg * k)
+                route.set_tag("slots", gcount * e * cap)
+                route.set_tag("kept", dispatch.sum())
+        with tracer.span("moe.experts"):
+            # dispatch: (G,Sg,E,C) x (G,Sg,d) -> (E,G,C,d)
+            xin = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), xg)
+            xin = constrain_act(xin, ("experts", "batch", None, None))
+            wg, wu, wd = (L.whole(w).to(cd) for w in (self.w_gate, self.w_up,
+                                                      self.w_down))
+            if self.enabled:
+                wg = fake_quant(wg, self.w_bits, 1)
+                wu = fake_quant(wu, self.w_bits, 1)
+                wd = fake_quant(wd, self.w_bits, 1)
+                xin = fake_quant(xin, self.a_bits, -1)
+            gate = torch.einsum("egcd,edf->egcf", xin, wg)
+            h = gate * torch.sigmoid(gate) * torch.einsum("egcd,edf->egcf",
+                                                          xin, wu)
+            hout = torch.einsum("egcf,efd->egcd", h, wd)
+            hout = constrain_act(hout, ("experts", "batch", None, None))
+            # combine back: (G,Sg,E,C) x (E,G,C,d) -> (G,Sg,d)
+            y = torch.einsum("gsec,egcd->gsd", combine.to(cd), hout)
+            y = constrain_act(y, ("batch", None, None))
         return y.reshape(b, s, d), aux
 
 

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..obs import tracer
 from . import layers as L
 from .ssm import causal_conv1d, chunked_gla, gla_decode_step
 from .transformer import Block as AttnBlock
@@ -58,52 +59,54 @@ class MambaBlock(nn.Module):
 
     def forward(self, xin, state=None):
         """xin: (B, T, d).  state: the layer's {'conv': (B,K-1,conv_dim),
-        'ssd': (B,H,N,P)}.  Returns (xin + out, {'conv', 'ssd'})."""
-        s = self.cfg.ssm
-        cd = xin.dtype
-        b, t, d = xin.shape
-        di = s.expand * d
-        nh = di // s.head_dim
-        proj = self.in_proj(self.ln(xin), cd)
-        z, xbc, dtp = torch.split(proj, [di, di + 2 * s.state, nh], dim=-1)
+        'ssd': (B,H,N,P)}.  Returns (xin + out, {'conv', 'ssd'}), in a
+        ``mamba`` span."""
+        with tracer.span("mamba"):
+            s = self.cfg.ssm
+            cd = xin.dtype
+            b, t, d = xin.shape
+            di = s.expand * d
+            nh = di // s.head_dim
+            proj = self.in_proj(self.ln(xin), cd)
+            z, xbc, dtp = torch.split(proj, [di, di + 2 * s.state, nh], dim=-1)
 
-        conv_cache = state["conv"] if state is not None else None
-        xbc, new_conv = causal_conv1d(xbc * torch.sigmoid(xbc),
-                                      L.whole(self.conv_w),
-                                      conv_cache)
-        xs, B, C = torch.split(xbc, [di, s.state, s.state], dim=-1)
+            conv_cache = state["conv"] if state is not None else None
+            xbc, new_conv = causal_conv1d(xbc * torch.sigmoid(xbc),
+                                          L.whole(self.conv_w),
+                                          conv_cache)
+            xs, B, C = torch.split(xbc, [di, s.state, s.state], dim=-1)
 
-        # SSD parameters: scalar decay per head, B/C shared across heads
-        # (ngroups=1)
-        x = dtp.to(torch.float32) + L.whole(self.dt_bias)
-        dt = torch.logaddexp(x, torch.zeros_like(x))           # softplus
-        # log a_t <= 0
-        decay = -torch.exp(L.whole(self.A_log))[None, None, :] * dt
+            # SSD parameters: scalar decay per head, B/C shared across heads
+            # (ngroups=1)
+            x = dtp.to(torch.float32) + L.whole(self.dt_bias)
+            dt = torch.logaddexp(x, torch.zeros_like(x))           # softplus
+            # log a_t <= 0
+            decay = -torch.exp(L.whole(self.A_log))[None, None, :] * dt
 
-        v = xs.reshape(b, t, nh, s.head_dim)                   # values
-        k = B[:, :, None, :].expand(b, t, nh, s.state)
-        q = C[:, :, None, :].expand(b, t, nh, s.state)
-        # dt scales the input (ZOH discretization of B x_t):
-        v_in = (v.to(torch.float32) * dt[..., None]).to(cd)
-        log_w = decay[..., None].expand(b, t, nh, s.state)
+            v = xs.reshape(b, t, nh, s.head_dim)                   # values
+            k = B[:, :, None, :].expand(b, t, nh, s.state)
+            q = C[:, :, None, :].expand(b, t, nh, s.state)
+            # dt scales the input (ZOH discretization of B x_t):
+            v_in = (v.to(torch.float32) * dt[..., None]).to(cd)
+            log_w = decay[..., None].expand(b, t, nh, s.state)
 
-        if state is None or t > 1:
-            # train / prefill: chunked scan (optionally continuing a state)
-            s0 = state["ssd"] if state is not None else None
-            y, ssd_fin = chunked_gla(q, k, v_in, log_w, inclusive=True,
-                                     chunk=s.chunk, s0=s0,
-                                     remat=self.cfg.remat)
-        else:
-            yv, ssd_fin = gla_decode_step(q[:, 0], k[:, 0], v_in[:, 0],
-                                          log_w[:, 0], state["ssd"],
-                                          inclusive=True)
-            y = yv[:, None]
-        # skip (D term)
-        y = y + v.to(y.dtype) * L.whole(self.D)[None, None, :, None]
-        y = y.reshape(b, t, di)
-        y = self.ln_y(y * (z * torch.sigmoid(z)))
-        out = self.out_proj(y, cd)
-        return xin + out, {"conv": new_conv, "ssd": ssd_fin}
+            if state is None or t > 1:
+                # train / prefill: chunked scan (optionally continuing a state)
+                s0 = state["ssd"] if state is not None else None
+                y, ssd_fin = chunked_gla(q, k, v_in, log_w, inclusive=True,
+                                         chunk=s.chunk, s0=s0,
+                                         remat=self.cfg.remat)
+            else:
+                yv, ssd_fin = gla_decode_step(q[:, 0], k[:, 0], v_in[:, 0],
+                                              log_w[:, 0], state["ssd"],
+                                              inclusive=True)
+                y = yv[:, None]
+            # skip (D term)
+            y = y + v.to(y.dtype) * L.whole(self.D)[None, None, :, None]
+            y = y.reshape(b, t, di)
+            y = self.ln_y(y * (z * torch.sigmoid(z)))
+            out = self.out_proj(y, cd)
+            return xin + out, {"conv": new_conv, "ssd": ssd_fin}
 
 
 def _segments(cfg) -> list[int]:

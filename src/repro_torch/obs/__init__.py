@@ -1,7 +1,8 @@
-"""`repro_torch.obs` — dependency-free tracing + metrics for the serving stack.
+"""`repro_torch.obs` — tracing + metrics for the serving stack and the
+models' serving steps.
 
-A copy of the JAX package's ``repro.obs`` (stdlib only), so the port's
-spans and counters carry the same names without importing ``repro``.
+Started as a copy of the JAX package's ``repro.obs``, so the port's spans
+and counters carry the same names without importing ``repro``.
 
 One subsystem answers "why was this response slow?" end to end:
 
@@ -9,34 +10,40 @@ One subsystem answers "why was this response slow?" end to end:
   contextvars, thread-safe across the frontend's scheduler thread) opened
   at frontend admission, per cache tier probed, around the fused engine
   pass (via the engine's own execute/latency hooks — strategies stay
-  untouched), and at kernel dispatch.
-- :mod:`repro_torch.obs.metrics` — typed counters/gauges/histograms with
+  untouched), at kernel dispatch, and in every serving step
+  (``serve.prefill`` / ``serve.decode_step`` roots over the models'
+  ``attn``, ``moe.route``, ``moe.experts``, ``mamba`` and ``fake_quant``
+  spans).
+- :mod:`repro_torch.obs.metrics` — typed counters/histograms with
   fixed-bucket p50/p99; the components' ``telemetry()`` dicts are thin
   views over it (:class:`StatsView`), byte-identical key sets.
-- :mod:`repro_torch.obs.export` — JSON-lines span log + Chrome ``trace_event``
-  timelines (``launch.serve --dcim-trace PATH``, Perfetto-loadable) and
-  :func:`metrics_snapshot` text exposition.
+- :mod:`repro_torch.obs.export` — Chrome ``trace_event`` timelines
+  (``launch.serve --dcim-trace PATH``, Perfetto-loadable).
 
-Tracing is off by default; :func:`configure` turns it on (optionally with
-a sampling rate) and the disabled path is a single contextvar read —
-≤1% overhead on ``service/p50_latency_ms``, asserted in CI.
+Spans record in two cases: while :func:`configure` has turned tracing on
+(optionally with a sampling rate), and while a ``torch.profiler``
+records, where each span used as a context manager is also a
+``record_function`` range.  :func:`profiler_ns` places a span on the
+profiler's clock.  Otherwise a span costs one flag read and a no-op
+``with`` (0.3-0.5 µs on the host of an H100 machine, ``PERF.md``); the
+buffer keeps at most ``Tracer.MAX_SPANS`` and counts the rest in
+``obs/spans_dropped``.
 """
 
 from __future__ import annotations
 
-from .export import (chrome_trace_events, span_dicts, write_chrome_trace,
-                     write_spans_jsonl)
-from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, StatsView,
-                      get_registry, metrics_snapshot)
-from .tracing import NOOP_SPAN, Span, SpanContext, SpanHandle, Tracer, tracer
+from .export import chrome_trace_events, write_chrome_trace
+from .metrics import (Counter, Histogram, MetricsRegistry, StatsView,
+                      get_registry)
+from .tracing import (NOOP_SPAN, Span, SpanContext, SpanHandle, Tracer,
+                      profiler_ns, tracer)
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "StatsView",
-    "get_registry", "metrics_snapshot",
+    "Counter", "Histogram", "MetricsRegistry", "StatsView", "get_registry",
     "NOOP_SPAN", "Span", "SpanContext", "SpanHandle", "Tracer", "tracer",
-    "span_dicts", "write_spans_jsonl", "chrome_trace_events",
-    "write_chrome_trace",
+    "chrome_trace_events", "write_chrome_trace",
     "configure", "install_engine_hooks", "uninstall_engine_hooks",
+    "profiler_ns",
 ]
 
 

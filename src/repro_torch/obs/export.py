@@ -1,10 +1,10 @@
-"""Span exporters: JSON-lines log and Chrome ``trace_event`` timelines.
+"""Span exporter: Chrome ``trace_event`` timelines.
 
-Both formats are plain stdlib-json over :meth:`Span.as_dict`.  The Chrome
-format (``{"traceEvents": [...]}`` with complete ``"ph": "X"`` events) is
-what ``launch.serve --dcim-trace PATH`` writes; load it at
-https://ui.perfetto.dev (or chrome://tracing) to see each request's
-queued→batched→served lane with cache-tier and engine-pass child spans.
+The Chrome format (``{"traceEvents": [...]}`` with complete ``"ph": "X"``
+events, plain stdlib json) is what ``launch.serve --dcim-trace PATH``
+writes; load it at https://ui.perfetto.dev (or chrome://tracing) to see
+each request's queued→batched→served lane with cache-tier and engine-pass
+child spans, and each serving step's lane with its layers' spans.
 
 Chrome events use microsecond timestamps relative to the earliest span in
 the export (the tracer clock is ``time.monotonic``, whose epoch is
@@ -18,18 +18,6 @@ from __future__ import annotations
 import json
 
 from .tracing import Span
-
-
-def span_dicts(spans: list[Span]) -> list[dict]:
-    return [s.as_dict() for s in spans]
-
-
-def write_spans_jsonl(spans: list[Span], path) -> int:
-    """One span per line; returns the number written."""
-    with open(path, "w") as fh:
-        for s in spans:
-            fh.write(json.dumps(s.as_dict(), sort_keys=True) + "\n")
-    return len(spans)
 
 
 def chrome_trace_events(spans: list[Span]) -> list[dict]:

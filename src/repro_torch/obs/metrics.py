@@ -1,4 +1,4 @@
-"""Typed metrics for the serving stack: counters, gauges, histograms.
+"""Typed metrics for the serving stack: counters and histograms.
 
 One :class:`MetricsRegistry` is the single source of truth for every
 counter the stack reports.  The per-component stats objects the earlier
@@ -19,15 +19,14 @@ increments themselves are as racy as the plain-int fields they replace,
 which is to say: not, under the GIL's read-modify-write granularity for
 the purposes these counters serve).
 
-    from repro_torch.obs import get_registry, metrics_snapshot
+    from repro_torch.obs import get_registry
     get_registry().counter("kernel/dcim_mac/dispatch").inc()
-    print(metrics_snapshot())
+    print(get_registry().as_dict())
 """
 
 from __future__ import annotations
 
 import threading
-import weakref
 
 #: Default histogram bucket upper bounds (seconds): log-spaced 1-2-5 decades
 #: from 1 µs to 60 s — wide enough for span durations from a cache probe to
@@ -64,28 +63,6 @@ class Counter:
 
     def __repr__(self) -> str:
         return f"Counter({self.name}={self._value})"
-
-
-class Gauge:
-    """A point-in-time float value (queue depth, window size, fraction)."""
-
-    __slots__ = ("name", "_lock", "_value")
-
-    def __init__(self, name: str):
-        self.name = name
-        self._lock = threading.Lock()
-        self._value = 0.0
-
-    def set(self, value: float) -> None:
-        with self._lock:
-            self._value = float(value)
-
-    @property
-    def value(self) -> float:
-        return self._value
-
-    def __repr__(self) -> str:
-        return f"Gauge({self.name}={self._value})"
 
 
 class Histogram:
@@ -174,14 +151,11 @@ class MetricsRegistry:
 
     A registry is cheap; every component stats object owns one (so two
     services in one process never share counters — the per-instance
-    semantics the existing tests pin), and all registries are enumerable
-    through :func:`metrics_snapshot` for the process-wide exposition."""
+    semantics the existing tests pin)."""
 
-    def __init__(self, namespace: str = ""):
-        self.namespace = namespace
+    def __init__(self):
         self._lock = threading.Lock()
         self._metrics: dict[str, object] = {}
-        _COMPONENTS.add(self)
 
     def _get_or_create(self, name: str, cls, *args):
         with self._lock:
@@ -196,9 +170,6 @@ class MetricsRegistry:
 
     def counter(self, name: str) -> Counter:
         return self._get_or_create(name, Counter)
-
-    def gauge(self, name: str) -> Gauge:
-        return self._get_or_create(name, Gauge)
 
     def histogram(self, name: str,
                   bounds: tuple[float, ...] | None = None) -> Histogram:
@@ -224,52 +195,16 @@ class MetricsRegistry:
                          else m.value)
         return out
 
-    def expose(self) -> str:
-        """Plain-text exposition, one ``name value`` line per metric
-        (histograms expand to ``name{count|sum|p50|p99}`` lines)."""
-        lines = []
-        for name, val in self.as_dict().items():
-            if isinstance(val, dict):
-                for k, v in val.items():
-                    lines.append(f"{name}{{{k}}} {v}")
-            else:
-                lines.append(f"{name} {val}")
-        return "\n".join(lines)
-
-
-#: Every live registry, weakly held — what :func:`metrics_snapshot` walks.
-#: Weak so short-lived test services don't accumulate forever.
-_COMPONENTS: "weakref.WeakSet[MetricsRegistry]" = weakref.WeakSet()
 
 #: The process-global registry: kernel dispatch counters, engine pass
 #: latency, span accounting — everything not scoped to one component
 #: instance.
-_GLOBAL = MetricsRegistry("process")
+_GLOBAL = MetricsRegistry()
 
 
 def get_registry() -> MetricsRegistry:
     """The process-global registry."""
     return _GLOBAL
-
-
-def metrics_snapshot() -> str:
-    """Text exposition across every live registry in the process — the
-    one dump a fleet agent scrapes.  Component registries (per-service
-    stats and friends) are prefixed with their namespace; the global
-    registry comes first, unprefixed."""
-    chunks = [_GLOBAL.expose()]
-    others = sorted((r for r in _COMPONENTS if r is not _GLOBAL),
-                    key=lambda r: (r.namespace, id(r)))
-    seen: dict[str, int] = {}
-    for reg in others:
-        if not reg.names():
-            continue
-        n = seen[reg.namespace] = seen.get(reg.namespace, 0) + 1
-        prefix = f"{reg.namespace or 'component'}[{n - 1}]"
-        body = reg.expose()
-        chunks.append("\n".join(f"{prefix}/{line}"
-                                for line in body.splitlines()))
-    return "\n".join(c for c in chunks if c)
 
 
 class StatsView:
@@ -288,7 +223,7 @@ class StatsView:
 
     def __init__(self, metrics: MetricsRegistry | None = None):
         if metrics is None:
-            metrics = MetricsRegistry(self._NAMESPACE)
+            metrics = MetricsRegistry()
         object.__setattr__(self, "metrics", metrics)
         for f in self._FIELDS:
             metrics.counter(f"{self._NAMESPACE}/{f}")

@@ -28,6 +28,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..obs import tracer
+
 
 @dataclass(frozen=True)
 class QuantSpec:
@@ -94,8 +96,10 @@ class _FakeQuant(torch.autograd.Function):
 
 def fake_quant(x: torch.Tensor, bits: int, axis: int | None = -1
                ) -> torch.Tensor:
-    """Quantize-dequantize with a straight-through gradient (QAT)."""
-    return _FakeQuant.apply(x, bits, axis)
+    """Quantize-dequantize with a straight-through gradient (QAT), in a
+    ``fake_quant`` span."""
+    with tracer.span("fake_quant"):
+        return _FakeQuant.apply(x, bits, axis)
 
 
 def block_fp_align(x: torch.Tensor, man_bits: int, block_axis: int = -1

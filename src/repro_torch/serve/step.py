@@ -5,6 +5,11 @@ The reference jits both and donates the decode state (in-place KV-cache
 update on device); here both run eagerly under ``torch.no_grad`` and decode
 writes the caches in place (:meth:`repro_torch.models.transformer.
 Transformer.decode_step`), so the cache is never double-buffered either.
+
+Each prefill and decode call is the root of a trace, ``serve.prefill`` /
+``serve.decode_step``, tagged with the model's name and the batch, over
+the models' layer spans (:mod:`repro_torch.obs`); it records only while
+tracing is on or a profiler records.
 """
 
 from __future__ import annotations
@@ -14,17 +19,29 @@ from typing import Callable
 import torch
 
 from ..models.registry import ModelApi
+from ..obs import tracer
+
+
+def _root(name: str, api: ModelApi, tokens: torch.Tensor):
+    """The step's trace root (a no-op while tracing is off)."""
+    span = tracer.start_trace(name)
+    if span:
+        span.set_tag("model", api.cfg.name)
+        span.set_tag("batch", tokens.shape[0])
+    return span
 
 
 def make_prefill(api: ModelApi, cache_len: int) -> Callable:
     def prefill(model, tokens, frontend=None):
-        return api.prefill(model, tokens, cache_len, frontend=frontend)
+        with _root("serve.prefill", api, tokens):
+            return api.prefill(model, tokens, cache_len, frontend=frontend)
     return prefill
 
 
 def make_decode_step(api: ModelApi) -> Callable:
     def decode_step(model, state, tokens):
-        return api.decode_step(model, state, tokens)
+        with _root("serve.decode_step", api, tokens):
+            return api.decode_step(model, state, tokens)
     return decode_step
 
 
