@@ -113,6 +113,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
                version, each within the JAX package's tolerance of the
                sequential plain version; each depth's time beside the
                plain version and the bound;
+ 5b. fake_quant the DCIM fake-quant kernel at the decode cells' operands
+               (granite-moe-3b-a800m at batch 1,024, zamba2-1.2b at 512)
+               in bfloat16 at 8 and 4 bits and in float32: result and
+               codes equal to the plain version's on the card bit for bit;
+               each operand's time beside the plain version's and the
+               bytes bound;
   6. autotune  the tile autotuner on the card for the warm-cache script's
                default targets (each winner within its exactness gate),
                then one ``tile_config="auto"`` call of each entry point,
@@ -187,10 +193,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
                activation quantizer call off by single code steps); and a
                cold launch with the profile phase's artifact before the
                warm one (one fused pass cold, none warm, the service
-               phase's pick).  It launches no hand-written kernel: the
-               models' products are ``torch.matmul`` and ``torch.einsum``
-               of fake-quantised operands, as the JAX models' are
-               ``jnp.matmul`` and ``jnp.einsum``;
+               phase's pick).  Its one hand-written kernel is the
+               fake-quant's: the full-width decode steps launch it once per
+               fake-quant call, MODEL_FAKE_QUANTS a step, split by route;
+               the models' products are ``torch.matmul`` and
+               ``torch.einsum`` of fake-quantised operands, as the JAX
+               models' are ``jnp.matmul`` and ``jnp.einsum``;
  11. train     the port's training path on the card (``repro_torch.train``,
                ``optim``, ``data``, ``ckpt``, the models' backward under
                remat): (a) for each of the ten smoke configs, one
@@ -274,7 +282,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 Each of phases 2, 2b, 3-5 and 7 sets its kernels' launch counts to 0 just
 before its main path and reads them just after (phase 7 twice: K1 through
 ``profile_kernel``, then K2, the float32 / bfloat16 ``dcim_mac`` skeletons,
-timed at the six qwen3-4b GEMMs); every kernel must have launched.
+timed at the six qwen3-4b GEMMs), and phase 10 the fake-quant's around
+each model's full-width decode loop; every kernel must have launched.
 
 It needs one CUDA card and exits non-zero without one, and when it does not
 sit at the root of a checkout of the repository.
@@ -406,7 +415,8 @@ def phase_device() -> None:
                 f"stores {use['spill_stores']} B, spill loads "
                 f"{use['spill_loads']} B")
             check(not lib.name.startswith(
-                      ("libcsa_tree", "libdcim_mac", "liblattice_rollup"))
+                      ("libcsa_tree", "libdcim_mac", "liblattice_rollup",
+                       "libfake_quant"))
                   or use["spill_stores"] == use["spill_loads"] == 0,
                   f"{lib.name} spills")
             if tma_kernel_mode(fn) in ("fused", "compute"):
@@ -1782,6 +1792,82 @@ def phase_ssm() -> list[dict]:
     ]
 
 
+#: The decode cells' fake-quant operands (shape, axis).  granite-moe-3b-
+#: a800m at batch 1,024: a token's activation row, the experts' input
+#: (E, G, C, d), a K/V projection's weight, the experts' gate/up weights.
+#: zamba2-1.2b at batch 512: the Mamba2 input projection's activation and
+#: (2048, 8384) weight, the output projection's activation and weight.
+FAKE_QUANT_SHAPES = {
+    "granite-moe-3b-a800m": (((1024, 1536), -1), ((40, 4, 64, 1536), -1),
+                             ((1536, 512), 0), ((40, 1536, 512), 1)),
+    "zamba2-1.2b": (((512, 2048), -1), ((2048, 8384), 0),
+                    ((512, 4096), -1), ((4096, 2048), 0)),
+}
+
+
+def phase_fake_quant() -> list[dict]:
+    """The fake-quant kernel at the decode cells' operands in bfloat16 and
+    8 bits (and each in float32 and at 4 bits): bit for bit the plain
+    version's result and codes on the card; then its time beside the
+    plain version's and the bytes bound (operand read once, result written
+    once).  The row's times are granite's four operands; its launches are
+    the model phase's (:func:`main` fills them in)."""
+    import torch
+
+    import repro_torch.quant.quantizers as Q
+    from repro_torch.kernels.fake_quant import LAUNCHES, fake_quant_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    inputs = {}
+    for arch, shapes in FAKE_QUANT_SHAPES.items():
+        for shape, axis in shapes:
+            x = torch.randn(shape, generator=g, device="cuda")
+            keep = list(shape)
+            keep[axis] = 1
+            scale = torch.exp2(8 * torch.rand(keep, generator=g,
+                                              device="cuda") - 4)
+            inputs[(arch, shape, axis)] = (x * scale).to(torch.bfloat16)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    for (_, shape, axis), x in inputs.items():
+        for xt, bits in ((x, 8), (x, 4), (x.float(), 8)):
+            got, codes = fake_quant_cuda(xt, bits, axis, codes=True)
+            q, _ = Q.quantize_int(xt, bits, axis)
+            want = Q._fake_quant_ref(xt, bits, axis)
+            check(torch.equal(got, want) and torch.equal(codes, q),
+                  f"fake_quant {shape} axis {axis} {xt.dtype} bits {bits}: "
+                  "differs from the plain version")
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    rows_n = sum(a == -1 for _, _, a in inputs)
+    check(launches == {"rows": 3 * rows_n,
+                       "cols": 3 * (len(inputs) - rows_n)},
+          f"fake_quant launch counts {launches}")
+    log(f"fake_quant: the decode cells' {len(inputs)} operands in bf16 (8 "
+        f"and 4 bits) and f32 equal the plain version bit for bit, codes "
+        f"too; launches {launches}")
+    sums = {arch: [0.0, 0.0, 0.0] for arch in FAKE_QUANT_SHAPES}
+    for (arch, shape, axis), x in inputs.items():
+        t = _time_ms(lambda: Q.fake_quant(x, 8, axis))
+        t_plain = _time_ms(lambda: Q._fake_quant_ref(x, 8, axis))
+        t_bound = 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        for i, v in enumerate((t, t_plain, t_bound)):
+            sums[arch][i] += v
+        log(f"fake_quant: {arch} {shape} axis {axis} bf16: kernel "
+            f"{t:.6f} ms, plain {t_plain:.6f} ms, bound {t_bound:.6f} ms "
+            f"(bytes)")
+    for arch, (t, t_plain, t_bound) in sums.items():
+        log(f"fake_quant: {arch}'s operands: kernel {t:.6f} ms, plain "
+            f"{t_plain:.6f} ms, bound {t_bound:.6f} ms")
+    card, plain, bound = sums["granite-moe-3b-a800m"]
+    return [{"name": "fake_quant", "route": "cuda",
+             "source": "src/repro_torch/csrc/fake_quant.cu",
+             "replaces": "none (XLA fuses src/repro/quant/quantizers.py)",
+             "launches": 0, "max_abs_err": 0.0, "ms": card,
+             "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+             "library_ms": None}]
+
+
 # ---------------------------------------------------------------------------
 # 6. autotune
 # ---------------------------------------------------------------------------
@@ -2495,6 +2581,15 @@ MODEL_PARAMS = {"qwen3-4b": 4_411_424_256,
 # the others are ties within the two paths' rounding, printed.
 BF16_TOL_FRAC = 0.1
 F32_TOL_FRAC = 1e-4
+# Fake-quant calls in one decode step of each model at its full config, by
+# the kernel's route: rows (activations, per token) and cols (weights, per
+# output column).  A dense layer's linear makes one of each; granite's MoE
+# layer adds its experts' three weights and their input; zamba2's shared
+# attention block runs every 6 of its 38 Mamba2 layers.
+MODEL_FAKE_QUANTS = {"qwen3-4b": {"rows": 252, "cols": 252},
+                     "granite-moe-3b-a800m": {"rows": 160, "cols": 224},
+                     "rwkv6-7b": {"rows": 256, "cols": 256},
+                     "zamba2-1.2b": {"rows": 125, "cols": 125}}
 # A reference MoE gate pair within EXPERT_TIE is a near-tie: card and CPU
 # may route it either way.
 EXPERT_TIE = 1e-6
@@ -2550,11 +2645,13 @@ def _in_forward() -> bool:
 
 @contextlib.contextmanager
 def _recording_codes(codes: list):
-    """A context in which every ``quantize_int`` call of a forward pass
-    appends its int8 codes (on the host) to ``codes``."""
+    """A context in which every fake-quant of a forward pass appends its
+    int8 codes (on the host) to ``codes``: ``quantize_int``'s on the CPU,
+    the kernel's on the card."""
     import repro_torch.quant.quantizers as Q
+    from repro_torch.kernels.fake_quant import fake_quant_cuda
 
-    orig = Q.quantize_int
+    orig, orig_kernel = Q.quantize_int, Q._fake_quant_kernel
 
     def rec(*a, **k):
         q, s = orig(*a, **k)
@@ -2562,11 +2659,17 @@ def _recording_codes(codes: list):
             codes.append(q.cpu())
         return q, s
 
-    Q.quantize_int = rec
+    def rec_kernel(x, bits, axis):
+        out, q = fake_quant_cuda(x, bits, axis, codes=True)
+        if _in_forward():
+            codes.append(q.cpu())
+        return out
+
+    Q.quantize_int, Q._fake_quant_kernel = rec, rec_kernel
     try:
         yield
     finally:
-        Q.quantize_int = orig
+        Q.quantize_int, Q._fake_quant_kernel = orig, orig_kernel
 
 
 def _first_flip(got: list, want: list):
@@ -2644,7 +2747,7 @@ def _sample_tokens(lines: list[str]) -> list[int]:
 
 
 def _serve_model(arch: str, card: str, work: Path, artifact: Path,
-                 pick: str | None = None) -> list[int]:
+                 pick: str | None = None) -> tuple[list[int], dict]:
     """One model of MODEL_ARCHS on the card (module doc, phase 10): at full
     width through prefill and greedy decode, decode after a prefill held
     against the longer prefill at full width in float32 (not for MoE), the
@@ -2653,11 +2756,13 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     service phase's macro) adds the cache check in its bf16 config, the
     card against the CPU with fake-quant on, and a cold launch with the
     profile phase's ``artifact`` before the warm one.  Returns the warm
-    launch's sample tokens (row 0's first 16)."""
+    launch's sample tokens (row 0's first 16) and the fake-quant kernel's
+    launches in the full-width decode steps, by route."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core import gemm_inventory
+    from repro_torch.kernels.fake_quant import LAUNCHES as FQ_LAUNCHES
     from repro_torch.kernels.profile import fraction_from_profile_artifact
     from repro_torch.models import get_model, model_class
     from repro_torch.quant import fake_quant
@@ -2723,6 +2828,8 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     last = logits[:, -1].float()
     tok = greedy_argmax(logits)
     out, steps = [tok], []
+    for key in FQ_LAUNCHES:
+        FQ_LAUNCHES[key] = 0
     t0 = time.perf_counter()
     for _ in range(n_decode):
         logits, state = decode(model, state, tok)
@@ -2731,6 +2838,10 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
         steps.append(logits)
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
+    fq = dict(FQ_LAUNCHES)
+    check(fq == {k: v * n_decode for k, v in MODEL_FAKE_QUANTS[arch].items()},
+          f"model: {arch}: fake_quant launches {fq} in {n_decode} decode "
+          f"steps, against {MODEL_FAKE_QUANTS[arch]} a step")
     check(int(state["pos"]) == MODEL_PROMPT + n_decode
           and all(x.shape == (MODEL_BATCH, 1, cfg.vocab_padded)
                   for x in steps)
@@ -2745,7 +2856,8 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
         f"{MODEL_BATCH * n_decode / t_decode:.1f} tokens/s; bound "
         f"{bound_ms:.3f} ms per step (every weight byte read once at 3.35 "
         f"TB/s); peak memory {peak} bytes ({held} of them held before "
-        f"init)")
+        f"init); fake_quant launches {fq} ({MODEL_FAKE_QUANTS[arch]} a "
+        f"step)")
     log(f"model: {arch}: first 16 tokens of row 0: "
         f"{torch.cat(out, 1)[0, :16].tolist()}")
     del logits, state, steps, out
@@ -2904,13 +3016,14 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
             + f"), {sel.serving_for(cfg.name).tokens_per_s!r} tok/s at "
             f"kernel fraction {fraction!r}")
     log(f"model: {arch} in all {time.perf_counter() - t_arch:.3f} s")
-    return _sample_tokens(lines)
+    return _sample_tokens(lines), fq
 
 
-def phase_model(pick: str, artifact: Path) -> list[int]:
+def phase_model(pick: str, artifact: Path) -> tuple[list[int], dict]:
     """The port's model zoo on the card (module doc, phase 10): each of
     MODEL_ARCHS in turn, qwen3-4b first, through :func:`_serve_model` on
-    one frontier store.  Returns qwen3-4b's launch's sample tokens."""
+    one frontier store.  Returns qwen3-4b's launch's sample tokens and the
+    fake-quant kernel's launches in the four models' decode steps."""
     import shutil
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2920,10 +3033,11 @@ def phase_model(pick: str, artifact: Path) -> list[int]:
     log(f"model: {card}")
     work = ROOT / "build" / "model"
     shutil.rmtree(work, ignore_errors=True)
-    samples = {arch: _serve_model(arch, card, work / "cache", artifact,
-                                  pick if arch == "qwen3-4b" else None)
-               for arch in MODEL_ARCHS}
-    return samples["qwen3-4b"]
+    runs = {arch: _serve_model(arch, card, work / "cache", artifact,
+                               pick if arch == "qwen3-4b" else None)
+            for arch in MODEL_ARCHS}
+    fq = {k: sum(run[1][k] for run in runs.values()) for k in ("rows", "cols")}
+    return runs["qwen3-4b"][0], fq
 
 
 # ---------------------------------------------------------------------------
@@ -3691,6 +3805,7 @@ def main() -> int:
     kernels += phase_csa(wk)
     t4 = time.perf_counter()
     kernels += phase_ssm()
+    kernels += phase_fake_quant()
     t5 = time.perf_counter()
     phase_autotune()
     t6 = time.perf_counter()
@@ -3701,7 +3816,12 @@ def main() -> int:
     t8 = time.perf_counter()
     pick = phase_service(chosen["results"], serving)
     t9 = time.perf_counter()
-    serve_sample = phase_model(pick, artifact)
+    serve_sample, fq_launches = phase_model(pick, artifact)
+    for k in kernels:
+        if k["name"] == "fake_quant":
+            # the model phase's full-width decode steps: the main path
+            k.update(launches=sum(fq_launches.values()),
+                     launches_by_route=fq_launches)
     t10 = time.perf_counter()
     train = phase_train()
     t11 = time.perf_counter()
@@ -3711,7 +3831,7 @@ def main() -> int:
     t13 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"shard {t2b - t2:.3f} s, mac {t3 - t2b:.3f} s, csa {t4 - t3:.3f} s, "
-        f"ssm {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
+        f"ssm and fake_quant {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
         f"{t7 - t6:.3f} s, serving {t8 - t7:.3f} s, service "
         f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s, train "
         f"{t11 - t10:.3f} s, scale {t12 - t11:.3f} s, dryrun "

@@ -11,6 +11,10 @@ version.
   ssm_scan  the chunked diagonal linear recurrence (SSM decode primitive),
             a chunk-parallel scan with a plain-load and a ``cp.async``-ring
             variant.  CUDA C++ in ``csrc/ssm_scan.cu``.
+  fake_quant  the DCIM layers' symmetric per-slice fake-quant in one
+            launch (rows or column slices, clusters over long columns);
+            its route is ``quant.quantizers.fake_quant``.  CUDA C++ in
+            ``csrc/fake_quant.cu``.
 
 The compiler's two device kernels are bindings only; their dispatchers live
 beside their plain versions in :mod:`repro_torch.core`:
@@ -35,6 +39,7 @@ from .csa_tree import (CSA_MAX_ROWS, csa_tree_ref, csa_tree_rows_cuda,
                        csa_tree_sum, csa_tree_tiled_cuda)
 from .dcim_mac import (dcim_mac_cuda, dcim_mac_int_cuda, dcim_matmul,
                        dcim_matmul_int)
+from .fake_quant import fake_quant_cuda
 from .instrument import dispatch_span
 from .lattice_rollup import lattice_rollup_cuda
 from .pareto_dominated import pareto_dominated_cuda
@@ -46,6 +51,7 @@ __all__ = [
     "CSA_MAX_ROWS", "csa_tree_ref", "csa_tree_rows_cuda", "csa_tree_sum",
     "csa_tree_tiled_cuda",
     "dcim_mac_cuda", "dcim_mac_int_cuda", "dcim_matmul", "dcim_matmul_int",
+    "fake_quant_cuda",
     "ssm_scan", "ssm_scan_assoc_ref", "ssm_scan_cuda", "ssm_scan_ref",
     "DEFAULT_TILES", "TileConfig", "resolve_tile", "shape_class",
     "tile_space", "dispatch_span", "lattice_rollup_cuda",

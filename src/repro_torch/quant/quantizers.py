@@ -20,6 +20,15 @@ value, and only then cast to float32.  The scalars are tensors on the
 input's device: on CUDA, torch divides by a Python number as a product with
 its reciprocal, which can miss the quotient by an ulp and flip a code.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
+
+``fake_quant`` routes by the input's device: every CUDA tensor runs the
+hand-written kernel (:mod:`repro_torch.kernels.fake_quant`, one launch,
+the scalars passed as kernel arguments), bit for bit the plain version's
+result, and any other tensor (the CPU's) runs the plain version
+(``quantize_int``).  The kernel takes bfloat16, float16 and float32 at
+``bits`` <= 8 and raises on anything else: ``bits`` 16, which no config
+uses, gives codes that do not fit in int8 (``quantize_int``'s cast wraps
+them, as the reference's does), so it runs on the CPU only.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..kernels.fake_quant.kernel import fake_quant_cuda
 from ..obs import tracer
 
 
@@ -81,13 +91,33 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
 
 
+def _fake_quant_ref(x: torch.Tensor, bits: int, axis: int | None
+                    ) -> torch.Tensor:
+    """The plain version: ``quantize_int``, then dequantised in x's
+    dtype."""
+    q, s = quantize_int(x, bits, axis)
+    return q.to(x.dtype) * s.to(x.dtype)
+
+
+def _fake_quant_kernel(x: torch.Tensor, bits: int, axis: int | None
+                       ) -> torch.Tensor:
+    """The card's route (one launch); recorders of the codes patch it."""
+    return fake_quant_cuda(x, bits, axis)
+
+
+def _takes_kernel(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
 class _FakeQuant(torch.autograd.Function):
-    """Quantize-dequantize forward, straight-through backward."""
+    """Quantize-dequantize forward (the kernel on the card, the plain
+    version on the CPU), straight-through backward."""
 
     @staticmethod
     def forward(ctx, x, bits, axis):
-        q, s = quantize_int(x, bits, axis)
-        return q.to(x.dtype) * s.to(x.dtype)
+        if _takes_kernel(x):
+            return _fake_quant_kernel(x, bits, axis)
+        return _fake_quant_ref(x, bits, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -97,8 +127,11 @@ class _FakeQuant(torch.autograd.Function):
 def fake_quant(x: torch.Tensor, bits: int, axis: int | None = -1
                ) -> torch.Tensor:
     """Quantize-dequantize with a straight-through gradient (QAT), in a
-    ``fake_quant`` span."""
-    with tracer.span("fake_quant"):
+    ``fake_quant`` span tagged ``kernel`` (whether the kernel's route
+    ran)."""
+    with tracer.span("fake_quant") as span:
+        if span:
+            span.set_tag("kernel", _takes_kernel(x))
         return _FakeQuant.apply(x, bits, axis)
 
 

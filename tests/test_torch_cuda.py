@@ -984,6 +984,7 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device, arch,
     rate (2 x where the gradient is below 5% of its leaf's largest)."""
     import repro_torch.quant.quantizers as TQ
     from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.kernels.fake_quant import fake_quant_cuda
     from repro_torch.optim import adamw_init, constant_lr
     from repro_torch.train import make_train_step
     from torch_expert_choices import expert_flip, record_expert_choices
@@ -1004,7 +1005,15 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device, arch,
             codes[q.device.type].append(q.cpu())
         return q, s
 
+    def recording_kernel(x, bits, axis):
+        # the card's fake-quant is the kernel: its codes, in call order
+        out, q = fake_quant_cuda(x, bits, axis, codes=True)
+        if torch._C._current_graph_task_id() == -1:
+            codes["cuda"].append(q.cpu())
+        return out
+
     monkeypatch.setattr(TQ, "quantize_int", recording)
+    monkeypatch.setattr(TQ, "_fake_quant_kernel", recording_kernel)
     choices = record_expert_choices(monkeypatch)
     out = {}
     for dev, model in (("cuda", card), ("cpu", cpu)):
