@@ -114,7 +114,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                sequential plain version; each depth's time beside the
                plain version and the bound;
  5b. fake_quant the DCIM fake-quant kernel at the decode cells' operands
-               (granite-moe-3b-a800m at batch 1,024, zamba2-1.2b at 512)
+               (granite-moe-3b-a800m at batch 1,024, zamba2-1.2b and
+               rwkv6-7b's Finch at 512)
                in bfloat16 at 8 and 4 bits and in float32: result and
                codes equal to the plain version's on the card bit for bit;
                each operand's time beside the plain version's and the
@@ -163,8 +164,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
                256; ``examples/torch_quickstart.py`` prints ``PASS``;
  10. model     the port's model zoo serving qwen3-4b (36 layers, 4.41e9
                parameters), then, each one's weights freed before the
-               next, granite-moe-3b-a800m, rwkv6-7b and zamba2-1.2b, each
-               at its full config (bf16) through one routine: the weights
+               next, granite-moe-3b-a800m, rwkv6-7b, rwkv6-7b.finch (the
+               ``rwkv6-7b.decode`` cell's configuration, Finch as
+               published) and zamba2-1.2b, each at its full config (bf16)
+               through one routine: the weights
                drawn on the card from a generator seeded 0 (layer and
                parameter counts checked and printed); prefill of 4 x 64
                tokens and greedy decode steps (32 for qwen3-4b, 8 for the
@@ -173,7 +176,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                vocabulary, the padding masked, of the right shapes); for
                rwkv6 and zamba2 whether a 4 x 256-token prefill in the
                config is finite (printed, not gated: the reference's
-               chunked scan can leave float32 there); for all but MoE, one
+               chunked scan can leave float32 there; gated for Finch, whose
+               chunk of 32 keeps it finite); for all but MoE, one
                decode step after a 64-token prefill against the 65-token
                prefill at full width in float32 without fake-quant (within
                F32_TOL_FRAC, the argmax kept wherever the top two are not
@@ -183,7 +187,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
                MoE expert choice flipped, which must then be a near-tie of
                the CPU's gates within EXPERT_TIE and is printed); and
                ``python -m repro_torch.launch.serve --arch <model>
-               --dcim-select`` at the full config as a subprocess on one
+               --dcim-select`` (not for Finch, which no launcher builds)
+               at the full config as a subprocess on one
                frontier store, its selection and tokens/s bound equal to
                ``select_macros``' and its times naming the card.  qwen3-4b
                adds: the cache check in the config (prefill of 63 tokens
@@ -1797,11 +1802,16 @@ def phase_ssm() -> list[dict]:
 #: (E, G, C, d), a K/V projection's weight, the experts' gate/up weights.
 #: zamba2-1.2b at batch 512: the Mamba2 input projection's activation and
 #: (2048, 8384) weight, the output projection's activation and weight.
+#: rwkv6-7b (Finch) at batch 512: the projections' activations (d and the
+#: channel-mix's d_ff wide) and their (4096, 4096), (4096, 14336) and
+#: (14336, 4096) weights, the last the cols route's longest columns.
 FAKE_QUANT_SHAPES = {
     "granite-moe-3b-a800m": (((1024, 1536), -1), ((40, 4, 64, 1536), -1),
                              ((1536, 512), 0), ((40, 1536, 512), 1)),
     "zamba2-1.2b": (((512, 2048), -1), ((2048, 8384), 0),
                     ((512, 4096), -1), ((4096, 2048), 0)),
+    "rwkv6-7b": (((512, 4096), -1), ((512, 14336), -1), ((4096, 4096), 0),
+                 ((4096, 14336), 0), ((14336, 4096), 0)),
 }
 
 
@@ -2564,14 +2574,21 @@ def phase_service(results: dict, serving: dict) -> str:
 # tokens, then greedy decode steps (qwen3-4b 32, into a 96-token cache; the
 # rest of the zoo 8, into 72); the decode-after-prefill checks prefill 65
 # tokens.  The parameter counts are the reference's
-# (tests/test_torch_models.py holds them equal).
-MODEL_ARCHS = ("qwen3-4b", "granite-moe-3b-a800m", "rwkv6-7b", "zamba2-1.2b")
+# (tests/test_torch_models.py holds them equal).  An entry of MODEL_PORTS is
+# a benchmark configuration's ``port`` block (``perfbench.run
+# .build_config``), not a config of the zoo: ``rwkv6-7b.finch`` is the
+# ``rwkv6-7b.decode`` cell's Finch 7B as published (family ``finch``),
+# whose parameter count is the configuration file's.
+MODEL_ARCHS = ("qwen3-4b", "granite-moe-3b-a800m", "rwkv6-7b",
+               "rwkv6-7b.finch", "zamba2-1.2b")
+MODEL_PORTS = {"rwkv6-7b.finch": "perfbench/configs/rwkv6-7b.json"}
 MODEL_BATCH, MODEL_PROMPT = 4, 64
 MODEL_DECODE = {"qwen3-4b": 32, "granite-moe-3b-a800m": 8, "rwkv6-7b": 8,
-                "zamba2-1.2b": 8}
+                "rwkv6-7b.finch": 8, "zamba2-1.2b": 8}
 MODEL_PARAMS = {"qwen3-4b": 4_411_424_256,
                 "granite-moe-3b-a800m": 3_298_985_472,
-                "rwkv6-7b": 7_534_546_944, "zamba2-1.2b": 1_170_313_344}
+                "rwkv6-7b": 7_534_546_944, "rwkv6-7b.finch": 7_635_746_816,
+                "zamba2-1.2b": 1_170_313_344}
 # Tolerances of the model phase, as shares of the reference logits' largest
 # magnitude.  A bfloat16 path rounds to 8 bits of mantissa after every op
 # and through 36 layers of fake-quant; a float32 path without fake-quant
@@ -2585,14 +2602,28 @@ F32_TOL_FRAC = 1e-4
 # the kernel's route: rows (activations, per token) and cols (weights, per
 # output column).  A dense layer's linear makes one of each; granite's MoE
 # layer adds its experts' three weights and their input; zamba2's shared
-# attention block runs every 6 of its 38 Mamba2 layers.
+# attention block runs every 6 of its 38 Mamba2 layers; both RWKV6 blocks
+# have eight linears (Finch's LoRAs are not fake-quantised), 16 x 32 calls.
 MODEL_FAKE_QUANTS = {"qwen3-4b": {"rows": 252, "cols": 252},
                      "granite-moe-3b-a800m": {"rows": 160, "cols": 224},
                      "rwkv6-7b": {"rows": 256, "cols": 256},
+                     "rwkv6-7b.finch": {"rows": 256, "cols": 256},
                      "zamba2-1.2b": {"rows": 125, "cols": 125}}
 # A reference MoE gate pair within EXPERT_TIE is a near-tie: card and CPU
 # may route it either way.
 EXPERT_TIE = 1e-6
+
+
+def _model_config(arch: str):
+    """The ``ArchConfig`` of an entry of MODEL_ARCHS: the zoo's config of
+    that name, or the ``port`` block of its MODEL_PORTS file."""
+    from repro_torch.configs import get_config
+
+    if arch not in MODEL_PORTS:
+        return get_config(arch)
+    from perfbench.run import build_config
+
+    return build_config(json.loads((ROOT / MODEL_PORTS[arch]).read_text()))
 
 
 def _launch(launcher: str, args: list[str], ranks: int = 1,
@@ -2752,7 +2783,8 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     width through prefill and greedy decode, decode after a prefill held
     against the longer prefill at full width in float32 (not for MoE), the
     card against the CPU at 2 full-width layers in float32, and the
-    launcher on the frontier store ``work``.  qwen3-4b (``pick``: the
+    launcher on the frontier store ``work`` (not for a MODEL_PORTS entry:
+    the launcher builds the zoo's config).  qwen3-4b (``pick``: the
     service phase's macro) adds the cache check in its bf16 config, the
     card against the CPU with fake-quant on, and a cold launch with the
     profile phase's ``artifact`` before the warm one.  Returns the warm
@@ -2760,7 +2792,6 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     launches in the full-width decode steps, by route."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import gemm_inventory
     from repro_torch.kernels.fake_quant import LAUNCHES as FQ_LAUNCHES
     from repro_torch.kernels.profile import fraction_from_profile_artifact
@@ -2774,7 +2805,7 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     t_arch = time.perf_counter()
     main = pick is not None
     n_decode = MODEL_DECODE[arch]
-    cfg = get_config(arch)
+    cfg = _model_config(arch)
     api = get_model(cfg)
     rng = np.random.default_rng(SEED)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab,
@@ -2873,9 +2904,10 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
                      f"against prefill {MODEL_PROMPT}, the config "
                      f"({cfg.param_dtype}, fake-quant)")
         del got, st
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "finch", "hybrid"):
         # a chunk of 256 tokens: the reference's chunked scan may leave
-        # float32 there (ROADMAP.md, "Reference state"); printed, not gated
+        # float32 there (ROADMAP.md, "Reference state"); printed, not gated,
+        # but for Finch, whose configured chunk keeps the decay finite
         long = torch.as_tensor(rng.integers(0, cfg.vocab, (MODEL_BATCH, 256)),
                                device="cuda")
         lg, _ = api.prefill(model, long, 256)
@@ -2883,6 +2915,9 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
         log(f"model: {arch}: prefill of {MODEL_BATCH}x256 tokens in the "
             f"config: finite {not bool(bad.any())}; {int(bad.sum())} of "
             f"256 positions with a non-finite logit")
+        check(cfg.family != "finch" or not bool(bad.any()),
+              f"model: {arch}: a 256-token prefill at chunk "
+              f"{cfg.ssm.chunk} is not finite")
         del lg, bad
     del model, last
     torch.cuda.empty_cache()
@@ -2969,6 +3004,9 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
         del gpu, cpu, got, want, lg, runs
         torch.cuda.empty_cache()
     log(f"model: {arch}: card against CPU {time.perf_counter() - t0:.3f} s")
+    if arch in MODEL_PORTS:
+        log(f"model: {arch} in all {time.perf_counter() - t_arch:.3f} s")
+        return [], fq
 
     # -- 4. the launcher at the full config, on the frontier store ----------
     args = ["--arch", arch, "--decode-steps", str(n_decode), "--dcim-select",

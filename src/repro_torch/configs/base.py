@@ -39,10 +39,18 @@ class FrontendCfg:
     d_frontend: int           # embedding dim delivered by the stub
 
 
+def finch_lora_ranks(d_model: int) -> tuple[int, int]:
+    """(ddlerp rank, decay rank) of a Finch block (family ``finch``):
+    RWKV-LM's ``RWKV_Tmix_x060`` rule, 32 and 64, doubled at a width of
+    4,096 (Finch 7B)."""
+    scale = 2 if d_model == 4096 else 1
+    return 32 * scale, 64 * scale
+
+
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str               # dense | moe | ssm | hybrid | vlm | audio
+    family: str               # dense | moe | ssm | finch | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -109,6 +117,10 @@ class ArchConfig:
             tmix = 4 * d * d + d * d // 2
             cmix = 2 * d * int(self.d_ff)
             block = tmix + cmix
+        elif self.family == "finch":    # rwkv6 as published
+            r_mix, r_decay = finch_lora_ranks(d)
+            block = 6 * d * d + 2 * d * int(self.d_ff) \
+                + 10 * d * r_mix + 2 * d * r_decay
         elif self.family == "hybrid":   # mamba2 blocks + one shared attn
             di = self.d_inner
             mamba = d * (2 * di + 2 * self.ssm.state + di // self.ssm.head_dim) \
@@ -151,7 +163,7 @@ SHAPES: dict[str, ShapeCfg] = {
 }
 
 # Families with sub-quadratic long-context decode (O(1) or O(window) state).
-SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+SUBQUADRATIC_FAMILIES = ("ssm", "finch", "hybrid")
 
 
 def applicable_shapes(cfg: ArchConfig) -> list[str]:

@@ -4,8 +4,9 @@
 ``get_model(cfg)`` returns a :class:`ModelApi` with the reference's fields
 for every family: ``dense``, ``vlm`` and ``audio``
 (:mod:`~repro_torch.models.transformer`), ``moe``
-(:mod:`~repro_torch.models.moe`), ``ssm`` (:mod:`~repro_torch.models.rwkv6`)
-and ``hybrid`` (:mod:`~repro_torch.models.zamba2`).  Where the reference's
+(:mod:`~repro_torch.models.moe`), ``ssm`` and ``finch``
+(:mod:`~repro_torch.models.rwkv6`) and ``hybrid``
+(:mod:`~repro_torch.models.zamba2`).  Where the reference's
 functions take a plain parameter tree, the port's take the model module
 that ``init_params`` returns; ``init_params`` and ``init_decode_state``
 take the device explicitly (``None``: the CUDA card).
@@ -47,6 +48,8 @@ def _family(cfg: ArchConfig):
         return moe_mod.MoeTransformer, tfm_mod.init_decode_state
     if cfg.family == "ssm":
         return rwkv_mod.RWKV6, rwkv_mod.init_decode_state
+    if cfg.family == "finch":
+        return rwkv_mod.Finch, rwkv_mod.init_decode_state
     if cfg.family == "hybrid":
         return zamba_mod.Zamba2, zamba_mod.init_decode_state
     raise ValueError(f"unknown family {cfg.family}")
