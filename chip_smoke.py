@@ -120,6 +120,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
                codes equal to the plain version's on the card bit for bit;
                each operand's time beside the plain version's and the
                bytes bound;
+ 5c. moe_dispatch the MoE slot-assignment kernel at granite-moe-3b-
+               a800m's decode (4 groups of 256 tokens) and prefill (256
+               groups) shapes: dispatch, combine and held equal to the
+               plain loop's on the CPU bit for bit, the seam's outputs
+               (the load-balance loss too) to the loop's on the card; its
+               time beside the loop's, the host's time to issue each, and
+               the bytes bound;
   6. autotune  the tile autotuner on the card for the warm-cache script's
                default targets (each winner within its exactness gate),
                then one ``tile_config="auto"`` call of each entry point,
@@ -198,12 +205,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
                activation quantizer call off by single code steps); and a
                cold launch with the profile phase's artifact before the
                warm one (one fused pass cold, none warm, the service
-               phase's pick).  Its one hand-written kernel is the
-               fake-quant's: the full-width decode steps launch it once per
-               fake-quant call, MODEL_FAKE_QUANTS a step, split by route;
-               the models' products are ``torch.matmul`` and
-               ``torch.einsum`` of fake-quantised operands, as the JAX
-               models' are ``jnp.matmul`` and ``jnp.einsum``;
+               phase's pick).  Its hand-written kernels are the
+               fake-quant's and the MoE slot assignment's: the full-width
+               decode steps launch the first once per fake-quant call,
+               MODEL_FAKE_QUANTS a step, split by route, and the second
+               once per MoE layer a step (granite's 32); the models'
+               products are ``torch.matmul`` and ``torch.einsum`` of
+               fake-quantised operands, as the JAX models' are
+               ``jnp.matmul`` and ``jnp.einsum``;
  11. train     the port's training path on the card (``repro_torch.train``,
                ``optim``, ``data``, ``ckpt``, the models' backward under
                remat): (a) for each of the ten smoke configs, one
@@ -1878,6 +1887,87 @@ def phase_fake_quant() -> list[dict]:
              "library_ms": None}]
 
 
+#: The MoE slot assignment's shapes (G, S, E, k, C): granite-moe-3b-
+#: a800m's decode at batch 1,024 (4 groups of 256 tokens) and its in-window
+#: prefill of 1,024 x 64 tokens (256 groups).
+MOE_DISPATCH_SHAPES = {"decode": (4, 256, 40, 8, 64),
+                       "prefill": (256, 256, 40, 8, 64)}
+
+
+def phase_moe_dispatch() -> list[dict]:
+    """The MoE slot-assignment kernel at granite's decode and prefill
+    shapes: dispatch, combine and held bit for bit the plain loop's on the
+    CPU, and the seam's three outputs (the load-balance loss too) the
+    loop's on the card; then its time beside the loop's on the card (CUDA
+    events), the host's time to issue each (no sync), and the bytes bound
+    (choices read once, outputs written once).  The row's times are the
+    decode shape's; its launches are the model phase's (:func:`main`
+    fills them in)."""
+    import torch
+
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels.moe_dispatch import LAUNCHES, moe_dispatch_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {}
+    for what, (gc, s, e, k, cap) in MOE_DISPATCH_SHAPES.items():
+        gates = torch.softmax(2.0 * torch.randn((gc, s, e), generator=g,
+                                                device="cuda"), dim=-1)
+        topv, topi = moe._top_k(gates, k)
+        LAUNCHES["dispatch"] = 0
+        d, c, held = moe_dispatch_cuda(topv, topi, e, cap)
+        torch.cuda.synchronize()
+        check(LAUNCHES["dispatch"] == 1, f"moe_dispatch {what}: launches "
+              f"{LAUNCHES}")
+        want_d, want_c = moe._slots_ref(topv.cpu(), topi.cpu(), e, cap)
+        check(torch.equal(d.cpu(), want_d)
+              and torch.equal(c.cpu().view(torch.int32),
+                              want_c.view(torch.int32))
+              and torch.equal(held.cpu(), want_d.any(-1).float()),
+              f"moe_dispatch {what} {(gc, s, e, k, cap)}: differs from the "
+              "plain loop")
+        got = moe._top_k_dispatch(gates, k, cap)
+        orig = moe._takes_kernel
+        moe._takes_kernel = lambda gates: False
+        try:
+            want = moe._top_k_dispatch(gates, k, cap)
+        finally:
+            moe._takes_kernel = orig
+        check(torch.equal(got[0], want[0])
+              and all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                      for a, b in zip(got[1:], want[1:])),
+              f"moe_dispatch {what}: the seam's kernel route differs from "
+              "its loop on the card")
+        t = _time_ms(lambda: moe_dispatch_cuda(topv, topi, e, cap))
+        t_plain = _time_ms(lambda: moe._slots_ref(topv, topi, e, cap))
+        host = {}
+        for name, fn in (("kernel", lambda: moe_dispatch_cuda(
+                topv, topi, e, cap)), ("loop", lambda: moe._slots_ref(
+                    topv, topi, e, cap))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            host[name] = (time.perf_counter() - t0) / 20 * 1e3
+            torch.cuda.synchronize()
+        nbytes = gc * s * (k * 12 + e * 4 + e * cap * 5)
+        t_bound = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[what] = (t, t_plain, t_bound)
+        log(f"moe_dispatch: granite {what} {(gc, s, e, k, cap)}: equal to "
+            f"the plain loop bit for bit ({int(d.sum())} of {gc * s * k} "
+            f"choices kept); kernel {t:.6f} ms, loop {t_plain:.6f} ms, "
+            f"bound {t_bound:.6f} ms (bytes); host to issue: kernel "
+            f"{host['kernel']:.6f} ms, loop {host['loop']:.6f} ms")
+    card, plain, bound = rows["decode"]
+    return [{"name": "moe_dispatch", "route": "cuda",
+             "source": "src/repro_torch/csrc/moe_dispatch.cu",
+             "replaces": "none (XLA fuses src/repro/models/moe.py:"
+                         "_top_k_dispatch)",
+             "launches": 0, "max_abs_err": 0.0, "ms": card,
+             "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+             "library_ms": None}]
+
+
 # ---------------------------------------------------------------------------
 # 6. autotune
 # ---------------------------------------------------------------------------
@@ -2789,11 +2879,14 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     card against the CPU with fake-quant on, and a cold launch with the
     profile phase's ``artifact`` before the warm one.  Returns the warm
     launch's sample tokens (row 0's first 16) and the fake-quant kernel's
-    launches in the full-width decode steps, by route."""
+    launches in the full-width decode steps, by route, beside the MoE
+    slot-assignment kernel's (``moe_dispatch``: one per MoE layer a
+    step)."""
     import torch
 
     from repro_torch.core import gemm_inventory
     from repro_torch.kernels.fake_quant import LAUNCHES as FQ_LAUNCHES
+    from repro_torch.kernels.moe_dispatch import LAUNCHES as MD_LAUNCHES
     from repro_torch.kernels.profile import fraction_from_profile_artifact
     from repro_torch.models import get_model, model_class
     from repro_torch.quant import fake_quant
@@ -2861,6 +2954,7 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     out, steps = [tok], []
     for key in FQ_LAUNCHES:
         FQ_LAUNCHES[key] = 0
+    MD_LAUNCHES["dispatch"] = 0
     t0 = time.perf_counter()
     for _ in range(n_decode):
         logits, state = decode(model, state, tok)
@@ -2873,6 +2967,10 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     check(fq == {k: v * n_decode for k, v in MODEL_FAKE_QUANTS[arch].items()},
           f"model: {arch}: fake_quant launches {fq} in {n_decode} decode "
           f"steps, against {MODEL_FAKE_QUANTS[arch]} a step")
+    md = MD_LAUNCHES["dispatch"]
+    md_step = cfg.n_layers if cfg.moe else 0
+    check(md == md_step * n_decode, f"model: {arch}: moe_dispatch launches "
+          f"{md} in {n_decode} decode steps, against {md_step} a step")
     check(int(state["pos"]) == MODEL_PROMPT + n_decode
           and all(x.shape == (MODEL_BATCH, 1, cfg.vocab_padded)
                   for x in steps)
@@ -2888,7 +2986,7 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
         f"{bound_ms:.3f} ms per step (every weight byte read once at 3.35 "
         f"TB/s); peak memory {peak} bytes ({held} of them held before "
         f"init); fake_quant launches {fq} ({MODEL_FAKE_QUANTS[arch]} a "
-        f"step)")
+        f"step); moe_dispatch launches {md} ({md_step} a step)")
     log(f"model: {arch}: first 16 tokens of row 0: "
         f"{torch.cat(out, 1)[0, :16].tolist()}")
     del logits, state, steps, out
@@ -3006,7 +3104,7 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
     log(f"model: {arch}: card against CPU {time.perf_counter() - t0:.3f} s")
     if arch in MODEL_PORTS:
         log(f"model: {arch} in all {time.perf_counter() - t_arch:.3f} s")
-        return [], fq
+        return [], {**fq, "moe_dispatch": md}
 
     # -- 4. the launcher at the full config, on the frontier store ----------
     args = ["--arch", arch, "--decode-steps", str(n_decode), "--dcim-select",
@@ -3054,14 +3152,15 @@ def _serve_model(arch: str, card: str, work: Path, artifact: Path,
             + f"), {sel.serving_for(cfg.name).tokens_per_s!r} tok/s at "
             f"kernel fraction {fraction!r}")
     log(f"model: {arch} in all {time.perf_counter() - t_arch:.3f} s")
-    return _sample_tokens(lines), fq
+    return _sample_tokens(lines), {**fq, "moe_dispatch": md}
 
 
 def phase_model(pick: str, artifact: Path) -> tuple[list[int], dict]:
     """The port's model zoo on the card (module doc, phase 10): each of
     MODEL_ARCHS in turn, qwen3-4b first, through :func:`_serve_model` on
     one frontier store.  Returns qwen3-4b's launch's sample tokens and the
-    fake-quant kernel's launches in the four models' decode steps."""
+    fake-quant kernel's launches in the models' decode steps (``rows``,
+    ``cols``) beside the MoE slot-assignment kernel's (``moe_dispatch``)."""
     import shutil
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3074,8 +3173,9 @@ def phase_model(pick: str, artifact: Path) -> tuple[list[int], dict]:
     runs = {arch: _serve_model(arch, card, work / "cache", artifact,
                                pick if arch == "qwen3-4b" else None)
             for arch in MODEL_ARCHS}
-    fq = {k: sum(run[1][k] for run in runs.values()) for k in ("rows", "cols")}
-    return runs["qwen3-4b"][0], fq
+    launches = {k: sum(run[1][k] for run in runs.values())
+                for k in ("rows", "cols", "moe_dispatch")}
+    return runs["qwen3-4b"][0], launches
 
 
 # ---------------------------------------------------------------------------
@@ -3844,6 +3944,7 @@ def main() -> int:
     t4 = time.perf_counter()
     kernels += phase_ssm()
     kernels += phase_fake_quant()
+    kernels += phase_moe_dispatch()
     t5 = time.perf_counter()
     phase_autotune()
     t6 = time.perf_counter()
@@ -3854,12 +3955,15 @@ def main() -> int:
     t8 = time.perf_counter()
     pick = phase_service(chosen["results"], serving)
     t9 = time.perf_counter()
-    serve_sample, fq_launches = phase_model(pick, artifact)
+    serve_sample, model_launches = phase_model(pick, artifact)
+    fq_launches = {r: model_launches[r] for r in ("rows", "cols")}
     for k in kernels:
+        # the model phase's full-width decode steps: the main path
         if k["name"] == "fake_quant":
-            # the model phase's full-width decode steps: the main path
             k.update(launches=sum(fq_launches.values()),
                      launches_by_route=fq_launches)
+        elif k["name"] == "moe_dispatch":
+            k.update(launches=model_launches["moe_dispatch"])
     t10 = time.perf_counter()
     train = phase_train()
     t11 = time.perf_counter()
@@ -3869,7 +3973,7 @@ def main() -> int:
     t13 = time.perf_counter()
     log(f"phases: device {t1 - t0:.3f} s, compiler {t2 - t1:.3f} s, "
         f"shard {t2b - t2:.3f} s, mac {t3 - t2b:.3f} s, csa {t4 - t3:.3f} s, "
-        f"ssm and fake_quant {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
+        f"ssm, fake_quant and moe_dispatch {t5 - t4:.3f} s, autotune {t6 - t5:.3f} s, profile "
         f"{t7 - t6:.3f} s, serving {t8 - t7:.3f} s, service "
         f"{t9 - t8:.3f} s, model {t10 - t9:.3f} s, train "
         f"{t11 - t10:.3f} s, scale {t12 - t11:.3f} s, dryrun "

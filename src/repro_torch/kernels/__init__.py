@@ -15,6 +15,10 @@ version.
             launch (rows or column slices, clusters over long columns);
             its route is ``quant.quantizers.fake_quant``.  CUDA C++ in
             ``csrc/fake_quant.cu``.
+  moe_dispatch  the MoE layers' Switch/GShard slot assignment in one
+            launch (dispatch, combine and the any-slot flags, written
+            densely); its route is ``models.moe._top_k_dispatch``.  CUDA
+            C++ in ``csrc/moe_dispatch.cu``.
 
 The compiler's two device kernels are bindings only; their dispatchers live
 beside their plain versions in :mod:`repro_torch.core`:

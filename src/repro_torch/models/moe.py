@@ -5,10 +5,14 @@ of the JAX package's ``repro/models/moe.py``).
 Dispatch is the reference's einsum formulation: token groups of
 ``MOE_GROUP`` tokens build (group, S, E, C) dispatch/combine tensors, the
 experts run as batched einsums over every expert's capacity slots, and the
-combine einsum gathers them back.  All experts' weights pass through the
-DCIM fake-quant in every call (per expert and output column), as in the
-reference.  The reference's expert-parallel sharding constraints sit at
-its call sites (:func:`~repro_torch.parallel.sharding.constrain_act`).
+combine einsum gathers them back.  On the card the slot assignment is
+one hand-written kernel (:mod:`repro_torch.kernels.moe_dispatch`), in
+serving and in training alike (:class:`_CardSlots` gives it the loop's
+gradient); CPU tensors run the plain loop (:func:`_slots_ref`), whose
+bits it equals.  All experts' weights pass through the DCIM fake-quant in
+every call (per expert and output column), as in the reference.  The
+reference's expert-parallel sharding constraints sit at its call sites
+(:func:`~repro_torch.parallel.sharding.constrain_act`).
 
 Over batch ranks (:func:`repro_torch.parallel.zero.data_parallel`, which
 the sharded train step and the sharded serving launcher enter) each rank
@@ -37,6 +41,7 @@ import math
 import torch
 from torch import nn
 
+from ..kernels.moe_dispatch.kernel import moe_dispatch_cuda
 from ..obs import tracer
 from ..parallel.sharding import constrain_act
 from ..parallel.zero import (dp_all_rows, dp_mean, dp_size_now,
@@ -56,19 +61,51 @@ def _top_k(gates: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return v[..., :k], i[..., :k]
 
 
-def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int):
-    """gates: (G, S, E) softmax router probs.  Returns (dispatch (G,S,E,C)
-    bool, combine (G,S,E,C) f32, aux_loss) via the Switch/GShard slot
-    assignment: iterate the k choices, positions within an expert given by a
-    cumulative count over the group; overflow tokens drop (capacity factor)."""
-    g, s, e = gates.shape
-    topv, topi = _top_k(gates, k)                              # (G,S,k)
-    dev = gates.device
+def _takes_kernel(gates: torch.Tensor) -> bool:
+    """Whether the slot assignment of ``gates`` runs the card's kernel:
+    on CUDA tensors; CPU tensors run the plain version."""
+    return gates.is_cuda
+
+
+def _dispatch_kernel(topv: torch.Tensor, topi: torch.Tensor, e: int,
+                     capacity: int):
+    """The card's route (one launch): (dispatch, combine, held)."""
+    return moe_dispatch_cuda(topv, topi, e, capacity)
+
+
+class _CardSlots(torch.autograd.Function):
+    """The card's slot assignment, differentiable in ``topv`` as the loop
+    is.  Each (g, s, e) holds at most one choice, in at most one slot, so
+    the loop's gradient of choice j is that of its expert's row of
+    ``combine`` where ``dispatch`` holds; dispatch and held take none."""
+
+    @staticmethod
+    def forward(ctx, topv, topi, e, capacity):
+        dispatch, combine, held = _dispatch_kernel(topv, topi, e, capacity)
+        ctx.mark_non_differentiable(dispatch, held)
+        ctx.save_for_backward(topi, dispatch)
+        return dispatch, combine, held
+
+    @staticmethod
+    def backward(ctx, _, g_combine, __):
+        topi, dispatch = ctx.saved_tensors
+        g = (g_combine * dispatch).sum(-1)                     # (G,S,E)
+        return torch.take_along_dim(g, topi, -1), None, None, None
+
+
+def _slots_ref(topv: torch.Tensor, topi: torch.Tensor, e: int,
+               capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain slot assignment of the top-k choices ``(topv, topi)``
+    (G, S, k): (dispatch (G,S,E,C) bool, combine (G,S,E,C) f32).  Iterate
+    the k choices, positions within an expert given by a cumulative count
+    over the group; overflow tokens drop (capacity factor)."""
+    g, s, _ = topi.shape
+    dev = topi.device
     prio_used = torch.zeros((g, e), dtype=torch.int32, device=dev)
     dispatch = torch.zeros((g, s, e, capacity), dtype=torch.bool, device=dev)
     combine = torch.zeros((g, s, e, capacity), dtype=torch.float32,
                           device=dev)
-    for slot in range(k):
+    for slot in range(topi.shape[-1]):
         idx = topi[..., slot]                                  # (G,S)
         onehot = nn.functional.one_hot(idx, e).to(torch.int32)  # (G,S,E)
         pos = torch.cumsum(onehot, dim=1) - 1 + prio_used[:, None, :]
@@ -81,9 +118,25 @@ def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int):
         d_slot = onehot.to(torch.float32)[..., None] * posoh[..., None, :]
         dispatch = dispatch | (d_slot > 0)
         combine = combine + d_slot * topv[..., slot][..., None, None]
+    return dispatch, combine
+
+
+def _top_k_dispatch(gates: torch.Tensor, k: int, capacity: int):
+    """gates: (G, S, E) softmax router probs.  Returns (dispatch (G,S,E,C)
+    bool, combine (G,S,E,C) f32, aux_loss) via the Switch/GShard slot
+    assignment of the top-k choices: the card's kernel where
+    :func:`_takes_kernel` says so, else the plain version
+    (:func:`_slots_ref`), bit for bit the same."""
+    e = gates.shape[-1]
+    topv, topi = _top_k(gates, k)                              # (G,S,k)
+    if _takes_kernel(gates):
+        dispatch, combine, held = _CardSlots.apply(topv, topi, e, capacity)
+    else:
+        dispatch, combine = _slots_ref(topv, topi, e, capacity)
+        held = dispatch.any(-1).to(torch.float32)
     # load-balance aux (Switch): E * sum_e f_e * p_e, both means over every
     # group, those of the other batch ranks too
-    density = dp_mean(dispatch.any(-1).to(torch.float32).mean(dim=(0, 1)))
+    density = dp_mean(held.mean(dim=(0, 1)))
     p_mean = dp_mean(gates.mean(dim=(0, 1)))
     aux = e * torch.sum(density * p_mean)
     return dispatch, combine, aux
@@ -128,7 +181,8 @@ class MoeMlp(nn.Module):
                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """The layer on the tokens of ``x`` in groups of ``MOE_GROUP``
         (``groups_global``: ``x`` is the global batch).  The router and the
-        slot assignment run in a ``moe.route`` span, tagged with the
+        slot assignment run in a ``moe.route`` span, tagged ``kernel``
+        (whether the card's kernel assigned the slots) and with the
         capacity count: ``routed`` assignments (G·S·top_k), ``slots``
         (G·E·C, what the expert einsums compute) and ``kept``, those that
         found a slot (a device scalar, resolved when the spans are read).
@@ -155,6 +209,7 @@ class MoeMlp(nn.Module):
                     contextlib.nullcontext():
                 dispatch, combine, aux = _top_k_dispatch(gates, k, cap)
             if route:
+                route.set_tag("kernel", _takes_kernel(gates))
                 route.set_tag("routed", gcount * sg * k)
                 route.set_tag("slots", gcount * e * cap)
                 route.set_tag("kept", dispatch.sum())

@@ -1,6 +1,7 @@
 """The port on the CUDA card: the hand-written ``dcim_mac``, ``csa_tree``
 and ``ssm_scan`` kernels and their profiling skeletons against their plain
-torch versions, the tile autotuner's winners, the kernel profiler, the
+torch versions, the MoE slot assignment (``moe_dispatch``) against its
+plain loop on the CPU and in a granite decode step, the tile autotuner's winners, the kernel profiler, the
 compiler's device path against the CPU and its two kernels
 (``lattice_rollup``, ``pareto_dominated``) against their plain versions,
 with their launch counts, and the model zoo's smoke configs and serving
@@ -13,13 +14,14 @@ only torch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: none for ``dcim_mac`` and ``csa_tree`` (int32, float32 and
-bfloat16 outputs must equal the plain version's bits), for every
-skeleton's data token, and for the compiler (its arrays and verdicts must
-equal the CPU's and the plain versions' bits).  ``ssm_scan`` is a float
-scan: it must equal its chunked plain version bit for bit at every tile and
-depth, and stay within the JAX package's rtol/atol of 2e-5 (3e-5 on ragged
-shapes) of the sequential plain version.
+Tolerances: none for ``dcim_mac``, ``csa_tree`` and ``moe_dispatch``
+(int32, float32, bfloat16 and bool outputs must equal the plain version's
+bits), for every skeleton's data token, and for the compiler (its arrays
+and verdicts must equal the CPU's and the plain versions' bits).
+``ssm_scan`` is a float scan: it must equal its chunked plain version bit
+for bit at every tile and depth, and stay within the JAX package's
+rtol/atol of 2e-5 (3e-5 on ragged shapes) of the sequential plain
+version.
 """
 
 import numpy as np
@@ -1050,3 +1052,140 @@ def test_smoke_train_step_on_the_card_equals_the_cpu(cuda_device, arch,
             frac = 0.05 if flip else 1e-4
             assert (gs[k][name] - w).abs().max().item() <= frac * w.abs(
                 ).max().item(), (k, name)
+
+
+# -- the MoE slot assignment ---------------------------------------------------
+# (G, S, E, k, C): granite-3b's decode (4 groups of 256) and prefill (256
+# groups), an overflow that drops, one slot an expert, S not a multiple of
+# 32, C not a multiple of 4 (scalar stores), one token
+MOE_DISPATCH_SHAPES = [(4, 256, 40, 8, 64), (256, 256, 40, 8, 64),
+                       (1, 48, 4, 2, 8), (3, 4, 40, 8, 1),
+                       (2, 77, 40, 8, 20), (2, 37, 6, 3, 5), (1, 1, 8, 2, 1)]
+
+
+def _moe_gates(g, s, e, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.softmax(2.0 * torch.randn((g, s, e), generator=gen,
+                                           device=device), dim=-1)
+
+
+def _f32_bits(x):
+    return x.detach().cpu().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("g,s,e,k,cap", MOE_DISPATCH_SHAPES)
+def test_moe_dispatch_kernel_equals_the_loop(cuda_device, g, s, e, k, cap):
+    """One launch; dispatch, combine's bits, held and the kept count equal
+    the plain loop's on the CPU."""
+    from repro_torch.kernels.moe_dispatch import LAUNCHES, moe_dispatch_cuda
+    from repro_torch.models import moe
+
+    topv, topi = moe._top_k(_moe_gates(g, s, e, cuda_device, g + s), k)
+    n0 = LAUNCHES["dispatch"]
+    d, c, held = moe_dispatch_cuda(topv, topi, e, cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["dispatch"] == n0 + 1
+    want_d, want_c = moe._slots_ref(topv.cpu(), topi.cpu(), e, cap)
+    assert d.dtype == torch.bool and c.dtype == torch.float32
+    assert torch.equal(d.cpu(), want_d)
+    np.testing.assert_array_equal(_f32_bits(c), _f32_bits(want_c))
+    assert torch.equal(held.cpu(), want_d.any(-1).to(torch.float32))
+    assert int(d.sum()) == int(want_d.sum())
+
+
+def test_moe_dispatch_kernel_on_exact_ties(cuda_device):
+    from repro_torch.models import moe
+
+    gates = torch.tensor([[[0.1, 0.3, 0.3, 0.2, 0.3, 0.3]]],
+                         device=cuda_device)
+    d, c, _ = moe._top_k_dispatch(gates, 3, 1)
+    want_d, want_c, _ = moe._top_k_dispatch(gates.cpu(), 3, 1)
+    assert torch.equal(d.cpu(), want_d)
+    np.testing.assert_array_equal(_f32_bits(c), _f32_bits(want_c))
+
+
+@pytest.mark.parametrize("g,s,e,k,cap", MOE_DISPATCH_SHAPES[:4])
+def test_moe_dispatch_seam_kernel_equals_loop_on_the_card(cuda_device, g, s,
+                                                          e, k, cap,
+                                                          monkeypatch):
+    """``_top_k_dispatch`` on the card: the kernel's route against the
+    loop's, every output (the load-balance loss too) bit for bit; gates
+    that take a gradient take the kernel too."""
+    from repro_torch.kernels.moe_dispatch import LAUNCHES
+    from repro_torch.models import moe
+
+    gates = _moe_gates(g, s, e, cuda_device, 11)
+    n0 = LAUNCHES["dispatch"]
+    got = moe._top_k_dispatch(gates, k, cap)
+    assert LAUNCHES["dispatch"] == n0 + 1
+    moe._top_k_dispatch(gates.clone().requires_grad_(), k, cap)
+    assert LAUNCHES["dispatch"] == n0 + 2
+    monkeypatch.setattr(moe, "_takes_kernel", lambda gates: False)
+    want = moe._top_k_dispatch(gates, k, cap)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(_f32_bits(a), _f32_bits(b))
+
+
+@pytest.mark.parametrize("g,s,e,k,cap", MOE_DISPATCH_SHAPES[:4])
+def test_moe_dispatch_gradient_equals_the_loop(cuda_device, g, s, e, k, cap,
+                                              monkeypatch):
+    """The gates' gradient through the kernel (``_CardSlots``) under a
+    loss that weighs every element of combine and the load-balance loss:
+    the loop's on the card bit for bit, and the CPU loop's within 1e-5
+    (the loss's means reduce on another device there)."""
+    from repro_torch.kernels.moe_dispatch import LAUNCHES
+    from repro_torch.models import moe
+
+    gates = _moe_gates(g, s, e, cuda_device, 13)
+    w = torch.randn((g, s, e, cap), device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(
+                        14))
+
+    def grad(x):
+        x = x.clone().requires_grad_()
+        _, combine, aux = moe._top_k_dispatch(x, k, cap)
+        ((combine * w.to(x.device)).sum() + aux).backward()
+        return x.grad
+
+    n0 = LAUNCHES["dispatch"]
+    got = grad(gates)
+    assert LAUNCHES["dispatch"] == n0 + 1
+    cpu = grad(gates.cpu())
+    monkeypatch.setattr(moe, "_takes_kernel", lambda gates: False)
+    want = grad(gates)
+    np.testing.assert_array_equal(_f32_bits(got), _f32_bits(want))
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-5, atol=1e-6)
+
+
+def test_granite_decode_step_kernel_equals_loop(cuda_device, monkeypatch):
+    """granite-moe-3b-a800m's full config cut to 2 layers, as served
+    (bf16, fake-quant on), at the decode cell's batch of 1,024: a prefill
+    of 4 tokens (16 groups) and one decode step (4 groups) give the same
+    logits bits with the kernel as with the loop, and launch the kernel
+    once per MoE layer and call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch import LAUNCHES
+    from repro_torch.models import get_model, moe
+
+    cfg = get_config("granite-moe-3b-a800m").replace(n_layers=2)
+    api = get_model(cfg)
+    model = api.init_params(torch.Generator(device=cuda_device).manual_seed(0),
+                            device=cuda_device)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1024, 5)), device=cuda_device)
+
+    def serve():
+        logits, state = api.prefill(model, tokens[:, :4], 8)
+        step, _ = api.decode_step(model, state, tokens[:, 4:])
+        return logits, step
+
+    n0 = LAUNCHES["dispatch"]
+    got = serve()
+    torch.cuda.synchronize()
+    assert LAUNCHES["dispatch"] == n0 + 2 * cfg.n_layers
+    monkeypatch.setattr(moe, "_takes_kernel", lambda gates: False)
+    want = serve()
+    for a, b in zip(got, want):
+        assert torch.equal(a.contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8))

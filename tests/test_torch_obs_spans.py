@@ -2,11 +2,14 @@
 CPU with the smoke granite and zamba2 configs: what one decode step records
 under ``torch.profiler``, where its spans sit on the profiler's clock, that
 a step records nothing and opens no profiler range while tracing is off,
-and the MoE capacity count the ``moe.route`` span carries."""
+the MoE capacity count and kernel tag the ``moe.route`` span carries,
+and the benchmark's reader of that tag on a record written by hand."""
 
 import dataclasses
 import math
+import sys
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -24,6 +27,8 @@ from repro_torch.serve.step import (greedy_argmax, make_decode_step,
                                     make_prefill)
 
 ARCHS = ("granite-moe-3b-a800m", "zamba2-1.2b")
+ROOT = Path(__file__).resolve().parents[1]
+MS = 1_000_000
 
 
 @pytest.fixture(autouse=True)
@@ -162,8 +167,8 @@ def test_moe_route_tags_count_the_dispatch(capacity_factor):
     cap = max(1, math.ceil(s * k / e * capacity_factor))
     dispatch, _, _ = _top_k_dispatch(gates, k, cap)
     kept = int(dispatch.any(-1).sum())
-    assert route.tags == {"routed": g * s * k, "slots": g * e * cap,
-                          "kept": kept}
+    assert route.tags == {"kernel": False, "routed": g * s * k,
+                          "slots": g * e * cap, "kept": kept}
     assert isinstance(route.tags["kept"], int)
     if capacity_factor < 1:
         assert kept < g * s * k
@@ -185,3 +190,49 @@ def test_profiler_ns_shifts_by_the_roots_offset():
                                        100_500_000_000 + offset)
     assert profiler_ns(root.span) == (100_000_000_000 + offset,
                                       101_000_000_000 + offset)
+
+
+def _decode_record(steps: list) -> dict:
+    """A ``--trace 1`` record of one traced decode step per entry of
+    ``steps``, each a list of ``moe.route`` spans' ``kernel`` tags (None:
+    untagged) recorded under the step's root, 1 ms apart; the harness's
+    spans of each step around its root on the profiler's clock."""
+    spans, events = [], []
+    for i, tags in enumerate(steps):
+        base = 0.1 * i
+        tracer.configure(enabled=True, clock=lambda: 0.0)
+        root = tracer.start_trace("serve.decode_step", start_s=base)
+        for j, kernel in enumerate(tags):
+            h = tracer.start("moe.route", parent=root.context,
+                             tags={} if kernel is None else {"kernel": kernel},
+                             start_s=base + (1 + j) / 1e3)
+            h.finish(end_s=base + (1.5 + j) / 1e3)
+        root.finish(end_s=base + (2 + len(tags)) / 1e3)
+        tracer.configure(enabled=False)
+        t0 = root.span.unix_offset_ns + 100 * i * MS
+        t1 = t0 + 50 * MS
+        spans += [("decode_call", t0, t1), ("argmax", t1, t1 + MS),
+                  ("token_copy", t1 + MS, t1 + 2 * MS)]
+        events.append(dict(kind="decode", job=0, t0=0, t_ret=1, t_end=2,
+                           tokens=4))
+    tr = {"window_ns": [spans[0][1], spans[-1][2]], "spans": spans,
+          "ops": [], "events": events}
+    return {"setup_s": 1.0, "window_s": 1.0, "events": [], "trace": tr,
+            "peaks": None, "matmul_substrings": []}
+
+
+@pytest.mark.parametrize("steps,want", [
+    ([[True, True, True], [True]], 100.0),
+    ([[True, False, True, False], [True, True]], 100 * 4 / 6),
+    ([[False, False], [False]], 0.0),
+    ([[True, None], [True]], None),         # a span without the tag
+    ([[], []], None)], ids=str)             # no moe.route span
+def test_moe_route_kernel_reader_on_a_record_by_hand(steps, want,
+                                                     monkeypatch):
+    monkeypatch.syspath_prepend(str(ROOT))
+    from perfbench.lib import manifest
+
+    read = manifest.load_reader("moe_route_kernel_pct.decode")
+    got = read(_decode_record(steps))
+    assert got == (None if want is None else pytest.approx(want))
+    assert read({"trace": None}) is None
